@@ -1,0 +1,205 @@
+"""The step-2 sum-signal kernel's wrapper and plain version
+(topsicle_tpu_torch.ops.cuda_kernels) vs the JAX boundary_sum_signal and
+the Pallas kernel it replaces (step2_sum_signal_pallas(_lean), run in
+interpret mode on its phase-planar wire, as tests/test_pallas.py runs it).
+
+On the CPU the wrapper takes the plain version; the CUDA kernel itself
+is compiled and compared only on a card (tests/test_torch_cuda.py and
+chip_smoke.py).  Integer outputs: exact equality."""
+
+import os
+import stat
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from topsicle_tpu import ops as jops
+from topsicle_tpu.io import batch as batching
+from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
+from topsicle_tpu.ops.pallas_kernels import (step2_sum_signal_pallas,
+                                             step2_sum_signal_pallas_lean)
+from topsicle_tpu_torch.ops import cuda_kernels
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _batch(seed, B, L, lean):
+    """[B, L] tails with ragged suffix padding; dense batches also carry
+    ~5% invalid bases inside the reads."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(L // 4, L + 1, B).astype(np.int32)
+    codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    if not lean:
+        codes[rng.random((B, L)) < 0.05] = 4
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 0xFF
+    return codes, lens
+
+
+def _wire(codes, lens, lean):
+    if lean:
+        return batching.pack_codes(codes), lens
+    return batching.pack_batch(codes)
+
+
+def _port(codes, lens, table, k, w, slide, lean):
+    a, b = _wire(codes, lens, lean)
+    return cuda_kernels.sum_signal(
+        torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(table),
+        k=k, window_size=w, slide=slide, L=a.shape[1] * 4, lean=lean).numpy()
+
+
+def _jax_xla(codes, table, k, w, slide):
+    p, m = batching.pack_batch(codes)
+    L = p.shape[1] * 4
+    c = jops.unpack_codes(jnp.asarray(p), jnp.asarray(m), L)
+    return np.asarray(jops.boundary_sum_signal(c, jnp.asarray(table), k, w, slide,
+                                               (L - w) // slide + 1))
+
+
+def _pallas(codes, lens, table, k, w, slide, lean):
+    L = codes.shape[1]
+    kw = dict(k=k, K=len(table), window_size=w, slide=slide, L=L, interpret=True)
+    if lean:
+        p = batching.pack_tails_phase_planar_lean(codes, k, w, slide)
+        return np.asarray(step2_sum_signal_pallas_lean(
+            jnp.asarray(p), jnp.asarray(lens.reshape(-1, 1)), jnp.asarray(table), **kw))
+    p, m = batching.pack_tails_phase_planar(codes, k, w, slide)
+    return np.asarray(step2_sum_signal_pallas(jnp.asarray(p), jnp.asarray(m),
+                                              jnp.asarray(table), **kw))
+
+
+@pytest.mark.parametrize("seed,L,lean", [(0, 2048, True), (1, 2048, False),
+                                         (2, 4096, True), (3, 4096, False)])
+def test_sum_signal_matches_jax_and_pallas(seed, L, lean):
+    """The demo geometry (k=5, w=100, slide 6, CCCTAAA), ragged lengths,
+    both wires: the port == XLA boundary_sum_signal == the Pallas kernel."""
+    codes, lens = _batch(seed, 8, L, lean)
+    table = pack_kmer_table(telophrase_kmers("CCCTAAA", 5))
+    got = _port(codes, lens, table, 5, 100, 6, lean)
+    assert got.dtype == np.int32 and got.shape == (8, (L - 100) // 6 + 1)
+    np.testing.assert_array_equal(got, _jax_xla(codes, table, 5, 100, 6))
+    np.testing.assert_array_equal(got, _pallas(codes, lens, table, 5, 100, 6, lean))
+
+
+@pytest.mark.parametrize("k,w,slide", [
+    (4, 64, 3),     # small window, slide < k
+    (5, 100, 1),    # slide = 1
+    (6, 80, 7),     # slide > k
+    (7, 120, 7),    # k = 7
+])
+def test_sum_signal_geometry_sweep(k, w, slide):
+    """tests/test_pallas.py's geometry sweep: random distinct k-mer
+    tables on dirty batches."""
+    rng = np.random.default_rng(k * 100 + slide)
+    codes, lens = _batch(k * 100 + slide, 8, 1536, lean=False)
+    kmers = set()
+    while len(kmers) < 10:
+        kmers.add("".join(rng.choice(list("ACGT"), k)))
+    table = pack_kmer_table(sorted(kmers))
+    got = _port(codes, lens, table, k, w, slide, False)
+    np.testing.assert_array_equal(got, _jax_xla(codes, table, k, w, slide))
+    np.testing.assert_array_equal(got, _pallas(codes, lens, table, k, w, slide, False))
+
+
+def test_sum_signal_k31_table():
+    """K = 31, the presence word's limit: entries taken from the reads so
+    most of them match somewhere."""
+    codes, lens = _batch(31, 8, 2048, lean=False)
+    k = 7
+    clean = codes[0, :lens[0]]
+    kmers = []
+    for p in range(0, len(clean) - k, 13):
+        km = clean[p:p + k]
+        if (km < 4).all() and km.tobytes() not in kmers:
+            kmers.append(km.tobytes())
+    table = np.array([sum(int(c) << (2 * j) for j, c in enumerate(km))
+                      for km in kmers[:31]], np.int32)
+    assert len(table) == 31
+    got = _port(codes, lens, table, k, 100, 6, False)
+    np.testing.assert_array_equal(got, _jax_xla(codes, table, k, 100, 6))
+    np.testing.assert_array_equal(got, _pallas(codes, lens, table, k, 100, 6, False))
+
+
+@pytest.mark.parametrize("kmers", [
+    telophrase_kmers("ATAT", 2),        # {AT, TA} twice: duplicate entries
+    telophrase_kmers("CCCTAAA", 14),    # k = 14 and k = 15: past the Pallas
+    telophrase_kmers("CCCTAAAC", 15),   # kernel's k <= 13 envelope
+])
+def test_sum_signal_beyond_pallas_envelope(kmers):
+    """Duplicate entries each count, and k runs to 15 (base-4 codes with
+    a separate invalid flag): the port's envelope is the XLA path's."""
+    k = len(kmers[0])
+    codes, lens = _batch(k, 4, 1024, lean=True)
+    codes[:, :200] = np.resize(np.array(["ACGT".index(c) for c in kmers[0]], np.uint8), 200)
+    table = pack_kmer_table(kmers)
+    got = _port(codes, lens, table, k, 40, 3, True)
+    np.testing.assert_array_equal(got, _jax_xla(codes, table, k, 40, 3))
+    assert (got > len(kmers)).any()          # some window holds matches
+
+
+def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
+    codes, lens = _batch(9, 4, 1024, lean=True)
+    table = pack_kmer_table(telophrase_kmers("CCCTAAA", 5))
+    a, b = _wire(codes, lens, True)
+    args = (torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(table))
+    kw = dict(k=5, window_size=100, slide=6, L=1024, lean=True)
+    before = dict(cuda_kernels.LAUNCHES)
+    y = cuda_kernels.sum_signal(*args, **kw)
+    assert torch.equal(y, cuda_kernels.sum_signal_plain(*args, **kw))
+    assert cuda_kernels.LAUNCHES == before
+    cuda_kernels.reset_launch_counts()
+    assert cuda_kernels.LAUNCHES == {"sum_signal": 0}
+
+
+def test_sum_signal_envelope_raises():
+    wire = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.full((2,), 256, dtype=torch.int32)
+    with pytest.raises(ValueError, match="31"):
+        cuda_kernels.sum_signal(wire, lens, torch.zeros(32, dtype=torch.int32),
+                                k=5, window_size=100, slide=6, L=256, lean=True)
+    with pytest.raises(ValueError, match="15"):
+        cuda_kernels.sum_signal(wire, lens, torch.zeros(4, dtype=torch.int32),
+                                k=16, window_size=100, slide=6, L=256, lean=True)
+
+
+def test_tile_geometry():
+    # main path: a full 256-window tile in ~9.8 KB of shared memory
+    tile, smem = cuda_kernels.tile_geometry(5, 6, 95, 3312)
+    assert tile == 256 and smem == 6 * (255 * 6 + 95) + 4
+    assert cuda_kernels.tile_geometry(5, 6, 95, 10) == (10, 6 * (9 * 6 + 95) + 4)
+    # wide windows shrink the tile to fit a Hopper block's shared memory
+    tile, smem = cuda_kernels.tile_geometry(5, 200, 20000, 1000)
+    assert tile < 256 and smem <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_kernels.tile_geometry(5, 1, 50000, 10)
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler error surfaces as RuntimeError with its output; no
+    half-written library is left behind."""
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: simulated' >&2\nexit 1\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", str(nvcc.parent) + os.pathsep + os.environ["PATH"])
+    monkeypatch.setattr(cuda_kernels, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_kernels.build_library()
+    assert not list((tmp_path / "build").glob("*.so*"))
+    assert cuda_kernels.library_path().parent == tmp_path / "build"
+
+
+def test_missing_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_kernels.find_nvcc()

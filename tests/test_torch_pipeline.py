@@ -1,0 +1,216 @@
+"""TorchEngine and the `topsicle-torch` CLI end to end on the CPU: the
+CSV and subset FASTQ must be byte-identical to JaxEngine's and
+OracleEngine's (multi-k, --threads, --resume included), the CLI must run
+with jax blocked (the machine with the card has none), and every case
+this slice does not serve must be refused with a clear error."""
+
+import os
+import random
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tests.test_pipeline import _write_synthetic_fastq
+from tests.test_resume import _write_file
+from topsicle_tpu.config import TopsicleConfig
+from topsicle_tpu.oracle import OracleEngine
+from topsicle_tpu.pipeline import JaxEngine
+from topsicle_tpu.utils import RunManifest
+from topsicle_tpu_torch import cli
+from topsicle_tpu_torch.pipeline import TorchEngine
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SUBSET = "synthetic.fastq_trc_over_0.7.fastq"
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def synthetic(tmp_path_factory):
+    """tests/test_pipeline.py's 40-read input (rng 99) and the oracle's
+    outputs on it."""
+    d = tmp_path_factory.mktemp("synthetic")
+    data = d / "synthetic.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(99))
+    OracleEngine(TopsicleConfig(input_dir=str(data), output_dir=str(d / "oracle"),
+                                pattern="CCCTAAA", slide=6)).run()
+    return data, d / "oracle"
+
+
+def _bytes(out, name="telolengths_all.csv"):
+    return (out / name).read_bytes()
+
+
+def test_torch_engine_matches_jax_and_oracle(synthetic, tmp_path):
+    data, oracle = synthetic
+    kw = dict(input_dir=str(data), pattern="CCCTAAA", slide=6, batch_size=8)
+    res = TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw),
+                      device="cpu").run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    got = _bytes(tmp_path / "t")
+    assert got == _bytes(oracle) == _bytes(tmp_path / "j")
+    assert got.count(b"\r\n") == len(res) + 1 > 2
+    assert _bytes(tmp_path / "t", SUBSET) == _bytes(oracle, SUBSET) == \
+        _bytes(tmp_path / "j", SUBSET)
+    log = (tmp_path / "t" / "topsicle_run.log").read_text()
+    assert "device: cpu" in log and "All telomere found" in log
+
+
+def test_torch_engine_multi_k(tmp_path):
+    """CCCTAAA at k = 4 and 5 (both tables aperiodic), batch 5."""
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(7), n_reads=16)
+    kw = dict(input_dir=str(data), pattern="CCCTAAA", telophrase=[4, 5], slide=6)
+    TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), batch_size=5, **kw),
+                device="cpu").run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), batch_size=8, **kw)).run()
+    OracleEngine(TopsicleConfig(output_dir=str(tmp_path / "o"), **kw)).run()
+    got = _bytes(tmp_path / "t")
+    assert got == _bytes(tmp_path / "o") == _bytes(tmp_path / "j")
+    assert b",4," in got and b",5," in got
+
+
+def test_torch_engine_threads_byte_identity(tmp_path):
+    """--threads 1 and 2 read files concurrently but consume them in
+    order: the same bytes, and the oracle's."""
+    rng = random.Random(31)
+    d = tmp_path / "in"
+    d.mkdir()
+    for f in range(4):
+        _write_synthetic_fastq(str(d / f"f{f}.fastq.gz"), rng, n_reads=6)
+    outs = []
+    for th in (1, 2):
+        cfg = TopsicleConfig(input_dir=str(d), output_dir=str(tmp_path / f"t{th}"),
+                             pattern="CCCTAAA", slide=6, batch_size=4, threads=th)
+        TorchEngine(cfg, device="cpu").run()
+        outs.append(_bytes(tmp_path / f"t{th}"))
+    OracleEngine(TopsicleConfig(input_dir=str(d), output_dir=str(tmp_path / "o"),
+                                pattern="CCCTAAA", slide=6)).run()
+    assert outs[0] == outs[1] == _bytes(tmp_path / "o")
+    assert outs[0].count(b"\n") > 2
+
+
+def test_torch_engine_resume_after_interrupt(tmp_path):
+    """tests/test_resume.py's pattern: drop the (b, k=5) unit of a 2-k
+    sweep from the manifest; the resumed CSV is byte-identical to the
+    uninterrupted run's, with full-precision TRCs from the manifest."""
+    rng = random.Random(11)
+    d = tmp_path / "in"
+    d.mkdir()
+    _write_file(str(d / "a.fastq.gz"), rng, 6)
+    _write_file(str(d / "b.fastq.gz"), rng, 6)
+    out = tmp_path / "out"
+    kw = dict(input_dir=str(d), output_dir=str(out), pattern="CCCTAAA",
+              telophrase=[4, 5], slide=6, batch_size=8)
+    res1 = TorchEngine(TopsicleConfig(**kw), device="cpu").run()
+    csv1 = _bytes(out)
+    m = RunManifest(str(out))
+    key_b5 = [k for k in m._done if "b.fastq" in k and k.endswith("::5")]
+    assert key_b5
+    del m._done[key_b5[0]]
+    m.mark_done(str(d / "a.fastq.gz"), 4, m.rows_for(str(d / "a.fastq.gz"), 4),
+                trcs=m.trcs_for(str(d / "a.fastq.gz"), 4))
+    res2 = TorchEngine(TopsicleConfig(resume=True, **kw), device="cpu").run()
+    assert _bytes(out) == csv1
+    assert sorted(r.trc for r in res1) == sorted(r.trc for r in res2)
+    assert "resume: skipping completed unit" in (out / "topsicle_run.log").read_text()
+
+
+def test_torch_engine_bucket_scan_length(synthetic, tmp_path):
+    """--scanLengthMode bucket pads each step-2 batch to its own length,
+    so the kernel sees several L; the bytes stay the oracle's."""
+    data, oracle = synthetic
+    TorchEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path),
+                               pattern="CCCTAAA", slide=6, batch_size=3,
+                               scan_length_mode="bucket"), device="cpu").run()
+    assert _bytes(tmp_path) == _bytes(oracle)
+
+
+def test_torch_engine_read_check(synthetic, tmp_path):
+    data, oracle = synthetic
+    rows = _bytes(oracle).decode().splitlines()[1:]
+    rid = rows[0].split(",")[3]
+    TorchEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path),
+                               pattern="CCCTAAA", slide=6, batch_size=8,
+                               read_check=rid), device="cpu").run()
+    lines = _bytes(tmp_path).decode().splitlines()
+    assert lines[1:] == [rows[0]]
+
+
+def test_cli_with_jax_blocked(synthetic, tmp_path):
+    """The machine with the card has no jax: the port's CLI must run with
+    every jax import failing, and write the oracle's CSV."""
+    data, oracle = synthetic
+    code = ("import sys; sys.modules['jax'] = None\n"
+            "from topsicle_tpu_torch.cli import main\n"
+            f"rc = main(['--inputDir', {str(data)!r}, '--outputDir', {str(tmp_path)!r},"
+            " '--pattern', 'CCCTAAA', '--slide', '6', '--batchSize', '8',"
+            " '--device', 'cpu'])\n"
+            "assert not [m for m in sys.modules if m.startswith('jax') and m != 'jax']\n"
+            "assert not [m for m in sys.modules if m.startswith(('topsicle_tpu.ops',"
+            " 'topsicle_tpu.models', 'topsicle_tpu.parallel'))]\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "All telomere found, have a nice day." in proc.stdout
+    assert _bytes(tmp_path) == _bytes(oracle)
+    assert _bytes(tmp_path, SUBSET) == _bytes(oracle, SUBSET)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(use_pallas=False), "--kernel xla"),
+    (dict(use_pallas="greedy"), "--kernel greedy"),
+    (dict(use_pallas="bogus"), "unknown kernel"),
+    (dict(plot=True), "--plot"),
+    (dict(rawcountpattern=True), "--rawcountpattern"),
+    (dict(shard_mode="global"), "--shardMode global"),
+    (dict(process_count=2, process_id=0), "--processCount"),
+    (dict(pattern="CCCTAA", telophrase=[5]), "greedy kernel"),      # mixed table
+    (dict(pattern="CCCTAAACC", telophrase=[16]), "k>15"),
+])
+def test_torch_engine_refuses(kw, match, tmp_path):
+    cfg = dict(input_dir="x", output_dir=str(tmp_path), pattern="CCCTAAA", slide=6)
+    cfg.update(kw)
+    with pytest.raises(ValueError, match=match):
+        TorchEngine(TopsicleConfig(**cfg), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [["--kernel", "xla"], ["--kernel", "greedy"],
+                                   ["--plot"], ["--coordinator", "localhost:1"]])
+def test_cli_refuses(synthetic, tmp_path, extra):
+    data, _ = synthetic
+    rc = cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path),
+                   "--pattern", "CCCTAAA", "--device", "cpu", *extra])
+    assert rc == 2
+    assert "ROADMAP.md" in (tmp_path / "topsicle_run.log").read_text()
+    assert not (tmp_path / "telolengths_all.csv").exists()
+
+
+def test_cli_cuda_without_card_raises(synthetic, tmp_path, monkeypatch):
+    data, _ = synthetic
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path),
+                  "--pattern", "CCCTAAA", "--device", "cuda"])
+
+
+def test_cli_override_guard_precompile_and_trace(synthetic, tmp_path):
+    data, oracle = synthetic
+    args = ["--inputDir", str(data), "--outputDir", str(tmp_path), "--pattern",
+            "CCCTAAA", "--slide", "6", "--batchSize", "8", "--device", "cpu"]
+    assert cli.main(args + ["--traceDir", str(tmp_path / "trace")]) == 0
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    assert cli.main(args) == 1                 # refuses without --override
+    assert cli.main(args + ["--override"]) == 0
+    assert _bytes(tmp_path) == _bytes(oracle)
+    assert cli.main(args + ["--precompile"]) == 0

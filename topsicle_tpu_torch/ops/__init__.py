@@ -1,0 +1,17 @@
+"""Device ops: plain torch (match, changepoint) and the hand-written CUDA
+kernels (cuda_kernels).  All integer, so results are bit-identical across
+the CPU, the card and the JAX reference."""
+
+from topsicle_tpu_torch.ops.changepoint import binseg_l2_device  # noqa: F401
+from topsicle_tpu_torch.ops.cuda_kernels import sum_signal, sum_signal_plain  # noqa: F401
+from topsicle_tpu_torch.ops.match import (  # noqa: F401
+    MAX_ROLLING_K,
+    boundary_sum_signal,
+    greedy_count_sum,
+    match_positions,
+    num_windows,
+    rolling_codes,
+    unpack_codes,
+    unpack_codes_len,
+    unpack_wire,
+)
