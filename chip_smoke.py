@@ -8,19 +8,32 @@ Run from the root of a checkout, with nothing installed or pre-built:
 Phases, each of which asserts (any failure exits non-zero, and no result
 line is printed):
 
-  1. environment: torch/CUDA versions, nvcc, the card's name and power limit
-  2. build: the CUDA kernels from topsicle_tpu_torch/csrc/, timed
-  3. kernel vs its plain torch version on the card, at the main path's
-     shapes (B = 128 and 1024 reads x L = 19968, k = 5, window 100, slide 6,
-     CCCTAAA) on the lean and dense wires, a K = 31 / k = 13 table and a
-     small geometry (slide 1, window 20, k 7): y_int and the changepoint's
-     (t, has) must be bit-identical
-  4. end to end: a seeded 4,096-read gzipped FASTQ (~64 Mbp) through the
-     port's CLI on the card; telolengths_all.csv and the subset FASTQ must
-     match the pure-Python OracleEngine byte for byte, and the main path
-     must have launched the kernel
-  5. times, from the card: kernel vs plain (CUDA events, median of 50),
-     the whole step-2 launch path, and the end-to-end wall time
+  1. environment: torch/CUDA versions, nvcc, the card's name and power
+     limit, and which optional host modules (matplotlib, pandas) exist
+  2. build: every CUDA kernel from topsicle_tpu_torch/csrc/, one nvcc per
+     source started together, timed
+  3. each kernel vs its plain torch version on the card, at the main
+     paths' shapes (B = 128 and 1024 reads x L = 19968, window 100,
+     slide 6), bit-identical:
+       sum_signal:    CCCTAAA k = 5 on the lean and dense wires, a K = 31 /
+                      k = 13 table, slide 1 / window 20 / k 7; y_int and
+                      the changepoint's (t, has)
+       greedy_signal and greedy_counts: CCCTAAA k = 7 (8 of 14 entries
+                      periodic) on the lean and dense (2% invalid) wires,
+                      CCCTAA k = 5, CCCTAAA k = 3, a K = 40 table with
+                      duplicates, slide 1 / window 20 / k 7; y_int,
+                      [B, K, W] counts and (t, has); and greedy_counts at
+                      step 1's shape, [256, 1000] ends
+  4. end to end: a seeded 4,096-read gzipped FASTQ (~58 Mbp) through the
+     port's CLI on the card, three paths, each with the launch counts set
+     to 0 just before it and read just after:
+       k = 5 (auto: the sum kernel), --telophrase 7 (a mixed table: the
+       greedy kernel in steps 1 and 2) and --kernel greedy at k = 5; each
+       run's telolengths_all.csv (and subset FASTQ) must match the
+       pure-Python OracleEngine's at that k byte for byte, and each path
+       must have launched exactly the kernels it runs
+  5. times, from the card: each kernel vs its plain version (CUDA events,
+     medians), the step-2 launch paths, and the end-to-end wall times
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -28,6 +41,7 @@ The last three lines are the kernels' JSON record, the card's
 """
 
 import gzip
+import importlib.util
 import json
 import os
 import shutil
@@ -103,6 +117,30 @@ def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
     return total_bp
 
 
+def _start_oracle(repo, fq, out, phrase=None):
+    """OracleEngine on `fq` in a child process (pure Python, CPU only), so
+    the reference CSVs are written while the card checks the kernels."""
+    tel = "" if phrase is None else f", telophrase=[{phrase}]"
+    code = ("from topsicle_tpu.config import TopsicleConfig\n"
+            "from topsicle_tpu.oracle import OracleEngine\n"
+            f"OracleEngine(TopsicleConfig(input_dir={fq!r}, output_dir={out!r}, "
+            f"pattern='CCCTAAA', slide=6{tel})).run()\n")
+    with open(out + ".log", "w") as log:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=repo,
+                                stdout=log, stderr=subprocess.STDOUT)
+
+
+def _median_ms(torch, kern, plain, reps=25):
+    """(kernel, plain) medians of CUDA-event times, in turns: plain,
+    kernel, kernel, plain, after 3 warm-up runs of each."""
+    for fn in (plain, kern):
+        _cuda_ms(torch, fn, 3)
+    tp = _cuda_ms(torch, plain, reps)
+    tk = _cuda_ms(torch, kern, reps) + _cuda_ms(torch, kern, reps)
+    tp += _cuda_ms(torch, plain, reps)
+    return statistics.median(tk), statistics.median(tp)
+
+
 def main() -> int:
     import torch
 
@@ -114,19 +152,10 @@ def main() -> int:
     sys.path.insert(0, repo)
     import numpy as np
 
-    from topsicle_tpu.config import TopsicleConfig
-    from topsicle_tpu.io import batch as batching
-    from topsicle_tpu.io import writer
-    from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
-    from topsicle_tpu.oracle import OracleEngine
-    from topsicle_tpu_torch import cli, ops
-    from topsicle_tpu_torch.models import TorchScanModel
     from topsicle_tpu_torch.ops import cuda_kernels
 
-    dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
-
     # ---- 1. environment ---------------------------------------------------
+    name = torch.cuda.get_device_name(0)
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, card {name}, count {torch.cuda.device_count()}")
     nvcc = subprocess.run([cuda_kernels.find_nvcc(), "--version"], capture_output=True,
@@ -136,21 +165,59 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"[env] nvidia-smi: {smi}")
+    mods = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "pandas")}
+    print(f"[env] host modules: {mods} (matplotlib draws --plot and the quadfit "
+          f"plot; pandas writes --rawcountpattern's CSVs)")
+
+    # the reference runs: the oracle writes its CSVs on the CPU meanwhile
+    work = os.path.join(repo, "_smoke_run")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fq = os.path.join(work, "reads.fastq.gz")
+    bp = _write_fastq(fq, np.random.default_rng(7))
+    print(f"[e2e] wrote 4096 reads, {bp / 1e6:.1f} Mbp")
+    oracles = {5: _start_oracle(repo, fq, os.path.join(work, "oracle5")),
+               7: _start_oracle(repo, fq, os.path.join(work, "oracle7"), 7)}
+    try:
+        return _phases(torch, name, smi, repo, work, fq, bp, oracles)
+    finally:
+        for p in oracles.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
+    """Phases 2-5; `oracles` are the running OracleEngine processes."""
+    import numpy as np
+
+    from topsicle_tpu.io import batch as batching
+    from topsicle_tpu.io import writer
+    from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
+    from topsicle_tpu_torch import cli, ops
+    from topsicle_tpu_torch.models import TorchScanModel
+    from topsicle_tpu_torch.ops import cuda_kernels
+
+    dev = torch.device("cuda", 0)
+    t_oracle = time.perf_counter()
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     so = cuda_kernels.build_library()
     cuda_kernels.load_library()
-    print(f"[build] {so.relative_to(repo)} in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {so.relative_to(repo)} from "
+          f"{[str(s.relative_to(repo)) for s in cuda_kernels.sources()]} in "
+          f"{time.perf_counter() - t0:.2f} s")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
 
-    # ---- 3. kernel vs plain ------------------------------------------------
+    # ---- 3. kernels vs plain -------------------------------------------------
     rng = np.random.default_rng(2024)
     L = 19968                                   # static_scan_length(), 20 kbp reads
     demo = pack_kmer_table(telophrase_kmers("CCCTAAA", 5))
-    max_err = 0
+    k7 = pack_kmer_table(telophrase_kmers("CCCTAAA", 7))
+    max_err = {n: 0 for n in cuda_kernels.LAUNCHES}
 
     def wire(codes, lens, lean):
         if lean:
@@ -159,134 +226,224 @@ def main() -> int:
         p, m = batching.pack_batch(codes)
         return torch.from_numpy(p).to(dev), torch.from_numpy(m).to(dev)
 
+    def agree(kernel, label, got, want):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want).abs().max()) if got.numel() else 0
+        max_err[kernel] = max(max_err[kernel], err)
+        assert torch.equal(got, want), f"{kernel} {label}: kernel differs from plain (max {err})"
+
+    def changepoints(label, y_k, y_p, lens, w, slide):
+        nw = torch.from_numpy(batching.window_counts_for_lengths(lens, w, slide)).to(dev)
+        t_k, h_k = ops.binseg_l2_device(y_k, nw)
+        t_p, h_p = ops.binseg_l2_device(y_p, nw)
+        assert torch.equal(t_k, t_p) and torch.equal(h_k, h_p), f"{label}: (t, has) differ"
+        return int(h_k.sum())
+
     def case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
-        nonlocal max_err
         tab = torch.from_numpy(table).to(dev)
         a, b = wire(codes, lens, lean)
         kw = dict(k=k, window_size=w, slide=slide, L=a.shape[1] * 4, lean=lean)
         y_k = cuda_kernels.sum_signal(a, b, tab, **kw)
         y_p = cuda_kernels.sum_signal_plain(a, b, tab, **kw)
-        torch.cuda.synchronize()
-        err = int((y_k - y_p).abs().max()) if y_k.numel() else 0
-        max_err = max(max_err, err)
-        assert torch.equal(y_k, y_p), f"{label}: kernel y_int differs from plain (max {err})"
-        nw = torch.from_numpy(batching.window_counts_for_lengths(lens, w, slide)).to(dev)
-        t_k, h_k = ops.binseg_l2_device(y_k, nw)
-        t_p, h_p = ops.binseg_l2_device(y_p, nw)
-        assert torch.equal(t_k, t_p) and torch.equal(h_k, h_p), f"{label}: (t, has) differ"
+        agree("sum_signal", label, y_k, y_p)
+        n = changepoints(label, y_k, y_p, lens, w, slide)
         if cpu_check:
             y_c = cuda_kernels.sum_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **kw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
-        print(f"[kernel] {label}: y_int {tuple(y_k.shape)} bit-identical, "
-              f"(t, has) identical, {int(h_k.sum())} reads with a boundary")
+        print(f"[kernel] sum_signal {label}: y_int {tuple(y_k.shape)} bit-identical, "
+              f"(t, has) identical, {n} reads with a boundary")
+
+    def greedy_case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
+        tab = torch.from_numpy(table).to(dev)
+        a, b = wire(codes, lens, lean)
+        Lw = a.shape[1] * 4
+        skw = dict(k=k, window_size=w, slide=slide, L=Lw, lean=lean)
+        ckw = dict(k=k, J=w - k, W=ops.num_windows(Lw, w, slide), slide=slide, L=Lw,
+                   lean=lean)
+        y_k = cuda_kernels.greedy_signal(a, b, tab, **skw)
+        y_p = cuda_kernels.greedy_signal_plain(a, b, tab, **skw)
+        agree("greedy_signal", label, y_k, y_p)
+        c_k = cuda_kernels.greedy_counts(a, b, tab, **ckw)
+        c_p = cuda_kernels.greedy_counts_plain(a, b, tab, **ckw)
+        agree("greedy_counts", label, c_k, c_p)
+        del c_p
+        assert torch.equal(ops.window_signal(c_k), y_k), f"{label}: counts and signal differ"
+        n = changepoints(label, y_k, y_p, lens, w, slide)
+        if cpu_check:
+            y_c = cuda_kernels.greedy_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **skw)
+            assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
+        print(f"[kernel] greedy {label}: y_int {tuple(y_k.shape)} and counts "
+              f"{tuple(c_k.shape)} bit-identical (max count {int(c_k.max())}), "
+              f"(t, has) identical, {n} reads with a boundary")
 
     def ragged(codes):
         lens = rng.integers(L // 2, L + 1, codes.shape[0]).astype(np.int32)
         codes[np.arange(codes.shape[1])[None, :] >= lens[:, None]] = 0xFF
         return codes, lens
 
+    def dirty(codes):
+        codes[(rng.random(codes.shape) < 0.02) & (codes < 4)] = 4
+        return codes
+
     for B in (128, 1024):
         codes, lens = ragged(_reads(rng, B, L))
         case(f"B={B} lean ragged", codes, lens, demo, 5, 100, 6, True, cpu_check=B == 128)
+        greedy_case(f"B={B} k=7 lean ragged", codes, lens, k7, 7, 100, 6, True,
+                    cpu_check=B == 128)
         codes, lens = ragged(_reads(rng, B, L))
-        dirty = (rng.random(codes.shape) < 0.02) & (codes < 4)
-        codes[dirty] = 4
+        codes = dirty(codes)
         case(f"B={B} dense 2% invalid", codes, lens, demo, 5, 100, 6, False,
              cpu_check=B == 128)
+        greedy_case(f"B={B} k=7 dense 2% invalid", codes, lens, k7, 7, 100, 6, False,
+                    cpu_check=B == 128)
     codes, lens = ragged(_reads(rng, 128, L))
     k13 = sorted({bytes(codes[0, p:p + 13]) for p in range(0, 4000, 97)})[:31]
     assert len(k13) == 31 and all(max(km) < 4 for km in k13)
     t31 = np.array([sum(int(c) << (2 * j) for j, c in enumerate(km)) for km in k13], np.int32)
     case("K=31 k=13 dense", codes, lens, t31, 13, 100, 6, False)
     codes, lens = ragged(_reads(rng, 128, L))
-    case("slide=1 w=20 k=7 lean", codes, lens, pack_kmer_table(telophrase_kmers("CCCTAAA", 7)),
-         7, 20, 1, True)
+    case("slide=1 w=20 k=7 lean", codes, lens, k7, 7, 20, 1, True)
+    greedy_case("slide=1 w=20 k=7 lean", codes, lens, k7, 7, 20, 1, True)
+    codes, lens = ragged(_reads(rng, 128, L, pattern="CCCTAA"))
+    greedy_case("CCCTAA k=5 dense 2% invalid", dirty(codes), lens,
+                pack_kmer_table(telophrase_kmers("CCCTAA", 5)), 5, 100, 6, False)
+    codes, lens = ragged(_reads(rng, 128, L))
+    greedy_case("CCCTAAA k=3 lean", codes, lens,
+                pack_kmer_table(telophrase_kmers("CCCTAAA", 3)), 3, 100, 6, True)
+    # K = 40: two mixed tables, one whose entries repeat theirs (TTAGGG is
+    # CCCTAA's reverse complement) and two periodic 7-mers
+    k40 = (telophrase_kmers("CCCTAAA", 7) + telophrase_kmers("CCCTAA", 7)
+           + telophrase_kmers("TTAGGG", 7) + ["AAAAAAA", "CACACAC"])
+    codes, lens = ragged(_reads(rng, 128, L, pattern="CCCTAA"))
+    greedy_case(f"K={len(k40)} k=7 dense", dirty(codes), lens, pack_kmer_table(k40),
+                7, 100, 6, False)
+    ends = _reads(rng, 256, 1000)                       # step 1: [B * 2 ends, no_bp]
+    ends_len = np.full(256, 1000, np.int32)
+    for lean in (True, False):
+        e = ends if lean else dirty(ends.copy())
+        tab = torch.from_numpy(k7).to(dev)
+        a, b = wire(e, ends_len, lean)
+        kw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=lean)
+        c_k = cuda_kernels.greedy_counts(a, b, tab, **kw)
+        agree("greedy_counts", "step 1", c_k, cuda_kernels.greedy_counts_plain(a, b, tab, **kw))
+        print(f"[kernel] greedy_counts step 1 [256, 1000] {'lean' if lean else 'dense'}: "
+              f"counts {tuple(c_k.shape)} bit-identical (max {int(c_k.max())})")
 
     # ---- 4. end to end ----------------------------------------------------
-    work = os.path.join(repo, "_smoke_run")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    fq = os.path.join(work, "reads.fastq.gz")
-    bp = _write_fastq(fq, np.random.default_rng(7))
-    print(f"[e2e] wrote 4096 reads, {bp / 1e6:.1f} Mbp")
-    t0 = time.perf_counter()
-    OracleEngine(TopsicleConfig(input_dir=fq, output_dir=os.path.join(work, "oracle"),
-                                pattern="CCCTAAA", slide=6)).run()
-    print(f"[e2e] OracleEngine: {time.perf_counter() - t0:.1f} s")
-    out = os.path.join(work, "port")
-    cuda_kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    rc = cli.main(["--inputDir", fq, "--outputDir", out, "--pattern", "CCCTAAA",
-                   "--slide", "6", "--batchSize", "128", "--device", "cuda"])
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    launches = dict(cuda_kernels.LAUNCHES)
-    assert rc == 0, f"port CLI exited {rc}"
-    assert all(n > 0 for n in launches.values()), f"kernels not launched: {launches}"
-    log_text = open(os.path.join(out, "topsicle_run.log")).read()
-    assert f"device: cuda:0 ({name})" in log_text, "the port did not run on the card"
-    got = open(os.path.join(out, "telolengths_all.csv"), "rb").read()
-    want = open(os.path.join(work, "oracle", "telolengths_all.csv"), "rb").read()
-    assert got == want, "telolengths_all.csv differs from the oracle's"
-    sub = os.path.basename(writer.subset_path(out, fq, 0.7))
-    assert open(os.path.join(out, sub), "rb").read() == \
-        open(os.path.join(work, "oracle", sub), "rb").read(), "subset FASTQ differs"
-    rows = got.count(b"\n") - 1
-    assert rows > 100, f"only {rows} rows"
-    print(f"[e2e] port CLI on {name}: {rows} rows, CSV and subset byte-identical to the "
-          f"oracle; kernel launches {launches}; wall {e2e_s:.2f} s = "
-          f"{4096 / e2e_s:.0f} reads/s, {bp / 1e6 / e2e_s:.2f} Mbp/s")
+    for k, p in oracles.items():
+        rc = p.wait(timeout=900)
+        log = open(os.path.join(work, f"oracle{k}.log")).read()
+        assert rc == 0, f"OracleEngine k={k} exited {rc}:\n{log[-2000:]}"
+    print(f"[e2e] OracleEngine at k=5 and k=7 (two processes beside phases 2-3) done "
+          f"{time.perf_counter() - t_oracle:.1f} s after the build began")
+    sub = os.path.basename(writer.subset_path(work, fq, 0.7))
+    e2e = {}
+
+    def drive(label, out, oracle, launched, *extra):
+        """One CLI path on the card, with the launch counts set to 0 just
+        before it and read just after."""
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--inputDir", fq, "--outputDir", os.path.join(work, out), "--pattern",
+                       "CCCTAAA", "--slide", "6", "--batchSize", "128", "--device", "cuda",
+                       *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_kernels.LAUNCHES)
+        assert rc == 0, f"{label}: port CLI exited {rc}"
+        ran = {n for n, c in launches.items() if c > 0}
+        assert ran == set(launched), f"{label}: launched {launches}, expected {launched}"
+        log_text = open(os.path.join(work, out, "topsicle_run.log")).read()
+        assert f"device: cuda:0 ({name})" in log_text, f"{label}: not run on the card"
+        got = open(os.path.join(work, out, "telolengths_all.csv"), "rb").read()
+        want = open(os.path.join(work, oracle, "telolengths_all.csv"), "rb").read()
+        assert got == want, f"{label}: telolengths_all.csv differs from the oracle's"
+        assert open(os.path.join(work, out, sub), "rb").read() == \
+            open(os.path.join(work, oracle, sub), "rb").read(), f"{label}: subset differs"
+        rows = got.count(b"\n") - 1
+        assert rows > 100, f"{label}: only {rows} rows"
+        print(f"[e2e] {label} on {name}: {rows} rows, CSV and subset byte-identical to the "
+              f"oracle; kernel launches {launches}; wall {wall:.2f} s = "
+              f"{4096 / wall:.0f} reads/s, {bp / 1e6 / wall:.2f} Mbp/s")
+        e2e[label] = (wall, launches)
+
+    drive("k=5 auto", "port5", "oracle5", ["sum_signal"])
+    drive("--telophrase 7", "port7", "oracle7", ["greedy_signal", "greedy_counts"],
+          "--telophrase", "7")
+    drive("--kernel greedy k=5", "port5g", "oracle5", ["greedy_signal"], "--kernel", "greedy")
 
     # ---- 5. times ---------------------------------------------------------
     B = 128
     codes, lens = ragged(_reads(rng, B, L))
     a, b = wire(codes, lens, True)
-    tab = torch.from_numpy(demo).to(dev)
-    kw = dict(k=5, window_size=100, slide=6, L=L, lean=True)
-    kern = lambda: cuda_kernels.sum_signal(a, b, tab, **kw)      # noqa: E731
-    plain = lambda: cuda_kernels.sum_signal_plain(a, b, tab, **kw)  # noqa: E731
-    for fn in (plain, kern):
-        _cuda_ms(torch, fn, 3)
-    tp = _cuda_ms(torch, plain, 25)
-    tk = _cuda_ms(torch, kern, 25) + _cuda_ms(torch, kern, 25)
-    tp += _cuda_ms(torch, plain, 25)
-    ms, plain_ms = statistics.median(tk), statistics.median(tp)
-    print(f"[time] sum_signal B=128 L=19968 lean: kernel {ms:.4f} ms, plain torch "
-          f"{plain_ms:.4f} ms (CUDA events, median of 50 each; {smi})")
-    model = TorchScanModel(telophrase_kmers("CCCTAAA", 5), device=dev,
-                           window_size=100, slide=6)
     nw = batching.window_counts_for_lengths(lens, 100, 6)
-    for _ in range(3):
-        model.step2_boundary(codes, nw, lens)
-    host = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        model.step2_boundary(codes, nw, lens)
-        host.append((time.perf_counter() - t0) * 1e3)
-    dev_ms = _cuda_ms(torch, lambda: model.step2_boundary(codes, nw, lens), 20)
-    print(f"[time] step-2 launch path B=128 (pack, H2D, kernel, changepoint, D2H): "
-          f"{statistics.median(host):.3f} ms host clock, {statistics.median(dev_ms):.3f} ms "
-          f"CUDA events, median of 20 ({smi})")
+    times = {}
+    for kname, kern_fn, plain_fn, table, k in (
+            ("sum_signal", cuda_kernels.sum_signal, cuda_kernels.sum_signal_plain, demo, 5),
+            ("greedy_signal", cuda_kernels.greedy_signal, cuda_kernels.greedy_signal_plain,
+             k7, 7)):
+        tab = torch.from_numpy(table).to(dev)
+        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+        times[kname] = _median_ms(torch, lambda: kern_fn(a, b, tab, **kw),
+                                  lambda: plain_fn(a, b, tab, **kw))
+        print(f"[time] {kname} B=128 L=19968 k={k} lean: kernel {times[kname][0]:.4f} ms, "
+              f"plain torch {times[kname][1]:.4f} ms (CUDA events, median of 50 each; {smi})")
+    tab = torch.from_numpy(k7).to(dev)
+    ea, eb = wire(ends, ends_len, True)
+    ckw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=True)
+    times["greedy_counts"] = _median_ms(
+        torch, lambda: cuda_kernels.greedy_counts(ea, eb, tab, **ckw),
+        lambda: cuda_kernels.greedy_counts_plain(ea, eb, tab, **ckw), reps=10)
+    print(f"[time] greedy_counts step 1 [256, 1000] k=7 lean: kernel "
+          f"{times['greedy_counts'][0]:.4f} ms, plain torch {times['greedy_counts'][1]:.4f} ms "
+          f"(CUDA events, median of 20 each; {smi})")
+    ckw = dict(k=7, J=93, W=ops.num_windows(L, 100, 6), slide=6, L=L, lean=True)
+    rc_ms = statistics.median(_cuda_ms(torch, lambda: cuda_kernels.greedy_counts(
+        a, b, tab, **ckw), 20))
+    print(f"[time] greedy_counts rawcounts B=128 L=19968 k=7 lean: kernel {rc_ms:.4f} ms "
+          f"(CUDA events, median of 20; {smi})")
+    for phrase in (5, 7):
+        model = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
+                               window_size=100, slide=6)
+        for _ in range(3):
+            model.step2_boundary(codes, nw, lens)
+        host = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            model.step2_boundary(codes, nw, lens)
+            host.append((time.perf_counter() - t0) * 1e3)
+        dev_ms = _cuda_ms(torch, lambda: model.step2_boundary(codes, nw, lens), 20)
+        print(f"[time] step-2 launch path k={phrase} ({model.kernel} kernel) B=128 (pack, "
+              f"H2D, kernel, changepoint, D2H): {statistics.median(host):.3f} ms host clock, "
+              f"{statistics.median(dev_ms):.3f} ms CUDA events, median of 20 ({smi})")
     pack = []
     for _ in range(20):
         t0 = time.perf_counter()
         model.pack_scan_batch(codes, lens)
         pack.append((time.perf_counter() - t0) * 1e3)
-    y, nw_dev = kern(), torch.from_numpy(nw).to(dev)
+    y = cuda_kernels.sum_signal(a, b, torch.from_numpy(demo).to(dev), k=5, window_size=100,
+                                slide=6, L=L, lean=True)
+    nw_dev = torch.from_numpy(nw).to(dev)
     cp_ms = _cuda_ms(torch, lambda: ops.binseg_l2_device(y, nw_dev), 20)
     print(f"[time] of which: host pack (clean check + 2-bit pack) "
           f"{statistics.median(pack):.3f} ms host clock; changepoint "
-          f"{statistics.median(cp_ms):.3f} ms CUDA events; kernel {ms:.4f} ms ({smi})")
-    print(f"[time] end to end: {e2e_s:.2f} s wall for 4096 reads = {4096 / e2e_s:.1f} "
-          f"reads/s, {bp / 1e6 / e2e_s:.3f} Mbp/s ({smi})")
+          f"{statistics.median(cp_ms):.3f} ms CUDA events ({smi})")
+    for label, (wall, _) in e2e.items():
+        print(f"[time] end to end {label}: {wall:.2f} s wall for 4096 reads = "
+              f"{4096 / wall:.1f} reads/s, {bp / 1e6 / wall:.3f} Mbp/s ({smi})")
     shutil.rmtree(work, ignore_errors=True)
 
+    src = "topsicle_tpu_torch/csrc/"
+    rec = [("sum_signal", "sum_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:224",
+            "k=5 auto"),
+           ("greedy_signal", "greedy_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:148",
+            "--telophrase 7"),
+           ("greedy_counts", "greedy_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:148",
+            "--telophrase 7")]
     print(json.dumps({"kernels": [{
-        "name": "sum_signal", "route": "cuda",
-        "source": "topsicle_tpu_torch/csrc/sum_signal.cu",
-        "replaces": "topsicle_tpu/ops/pallas_kernels.py:224",
-        "launches": launches["sum_signal"], "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "name": n, "route": "cuda", "source": src + f, "replaces": r,
+        "launches": e2e[run][1][n], "max_abs_err": max_err[n],
+        "ms": times[n][0], "plain_ms": times[n][1]} for n, f, r, run in rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The port on a CUDA card: the hand-written kernel against its plain
-version, and the model and engine on the card against the same code on
+"""The port on a CUDA card: the hand-written kernels against their plain
+versions, and the model and engine on the card against the same code on
 the CPU.  Every test needs a card and skips without one.
 
 This file imports no jax (the machine with the card has none), so it
@@ -32,11 +32,12 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _batch(seed, B, L, lean):
+def _batch(seed, B, L, lean, pattern="CCCTAAA"):
     rng = np.random.default_rng(seed)
     lens = rng.integers(L // 4, L + 1, B).astype(np.int32)
     codes = rng.integers(0, 4, (B, L)).astype(np.uint8)
-    codes[:, :L // 3] = np.resize(np.array([1, 1, 1, 3, 0, 0, 0], np.uint8), L // 3)
+    rep = np.array(["ACGT".index(c) for c in pattern], np.uint8)
+    codes[:, :L // 3] = np.resize(rep, L // 3)
     if not lean:
         codes[rng.random((B, L)) < 0.02] = 4
     codes[np.arange(L)[None, :] >= lens[:, None]] = 0xFF
@@ -61,6 +62,69 @@ def test_kernel_matches_plain(dev, k, w, slide, lean):
     assert cuda_kernels.LAUNCHES["sum_signal"] == n0 + 1
     assert torch.equal(y, cuda_kernels.sum_signal_plain(a, b, table, **kw))
     assert torch.equal(y.cpu(), cuda_kernels.sum_signal(a.cpu(), b.cpu(), table.cpu(), **kw))
+
+
+# K = 40: two mixed tables, a table whose entries repeat the first two
+# (TTAGGG is CCCTAA's reverse complement) and two periodic 7-mers
+_K40 = (telophrase_kmers("CCCTAAA", 7) + telophrase_kmers("CCCTAA", 7)
+        + telophrase_kmers("TTAGGG", 7) + ["AAAAAAA", "CACACAC"])
+
+
+@pytest.mark.parametrize("pattern,kmers,w,slide", [
+    ("CCCTAAA", telophrase_kmers("CCCTAAA", 7), 100, 6),   # 8 of 14 periodic
+    ("CCCTAA", telophrase_kmers("CCCTAA", 5), 100, 6),     # human, 2 of 12
+    ("CCCTAAA", telophrase_kmers("CCCTAAA", 3), 100, 6),
+    ("ATAT", telophrase_kmers("ATAT", 4), 100, 6),         # periodic duplicates
+    ("CCCTAA", _K40, 100, 6),
+    ("CCCTAAA", telophrase_kmers("CCCTAAA", 7), 20, 1),
+])
+@pytest.mark.parametrize("lean", [True, False])
+def test_greedy_kernels_match_plain(dev, pattern, kmers, w, slide, lean):
+    k = len(kmers[0])
+    codes, lens = _batch(len(kmers) + w, 64, 4096, lean, pattern)
+    table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    L = a.shape[1] * 4
+    skw = dict(k=k, window_size=w, slide=slide, L=L, lean=lean)
+    ckw = dict(k=k, J=w - k, W=(L - w) // slide + 1, slide=slide, L=L, lean=lean)
+    n0 = dict(cuda_kernels.LAUNCHES)
+    y = cuda_kernels.greedy_signal(a, b, table, **skw)
+    c = cuda_kernels.greedy_counts(a, b, table, **ckw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["greedy_signal"] == n0["greedy_signal"] + 1
+    assert cuda_kernels.LAUNCHES["greedy_counts"] == n0["greedy_counts"] + 1
+    assert torch.equal(y, cuda_kernels.greedy_signal_plain(a, b, table, **skw))
+    assert torch.equal(c, cuda_kernels.greedy_counts_plain(a, b, table, **ckw))
+    assert torch.equal(y, c.clamp_min(1).sum(dim=1, dtype=torch.int32))
+    assert int(c.max()) > 1
+
+
+@pytest.mark.parametrize("lean", [True, False])
+def test_greedy_step1_counts_match_plain(dev, lean):
+    """Step 1's shape: one window over every offset of [256, 1000] ends."""
+    kmers = telophrase_kmers("CCCTAAA", 7)
+    codes, lens = _batch(7, 256, 1000, lean)
+    table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    kw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=lean)
+    c = cuda_kernels.greedy_counts(a, b, table, **kw)
+    assert c.shape == (256, 14, 1)
+    assert torch.equal(c, cuda_kernels.greedy_counts_plain(a, b, table, **kw))
+    assert int(c.max()) > 10
+
+
+def test_greedy_wrapper_rejects_bad_inputs(dev):
+    codes, lens = _batch(1, 4, 1024, True)
+    a, b = _wire(codes, lens, True, dev)
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", 7))).to(dev)
+    kw = dict(k=7, window_size=100, slide=6, L=1024, lean=True)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_kernels.greedy_signal(a, b.to(torch.int64), table, **kw)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda_kernels.greedy_counts(a, b, table.cpu(), k=7, J=93, W=155, slide=6, L=1024,
+                                   lean=True)
+    with pytest.raises(ValueError, match="fewer"):
+        cuda_kernels.greedy_signal(a, b, table, **dict(kw, L=2048))
 
 
 def test_wrapper_rejects_bad_inputs(dev):
@@ -92,6 +156,23 @@ def test_model_on_card_matches_cpu(dev):
                                       cpu.step1_counts(ends, np.full(37, 1000, np.int32)))
 
 
+def test_greedy_model_on_card_matches_cpu(dev):
+    """A mixed table: step 1, step 2 and rawcounts on the greedy kernel."""
+    kmers = telophrase_kmers("CCCTAA", 5)
+    gpu = TorchScanModel(kmers, device=dev, window_size=100, slide=6)
+    cpu = TorchScanModel(kmers, device="cpu", window_size=100, slide=6)
+    assert gpu.kernel == "greedy"
+    for lean in (True, False):
+        codes, lens = _batch(4, 37, 19968, lean, "CCCTAA")
+        nw = batching.window_counts_for_lengths(lens, 100, 6)
+        for x, y in zip(gpu.step2_boundary(codes, nw, lens), cpu.step2_boundary(codes, nw, lens)):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(gpu.rawcounts(codes, lens), cpu.rawcounts(codes, lens))
+        ends = codes[:, :2000].reshape(37, 2, 1000)
+        np.testing.assert_array_equal(gpu.step1_counts(ends, np.full(37, 1000, np.int32)),
+                                      cpu.step1_counts(ends, np.full(37, 1000, np.int32)))
+
+
 def test_engine_on_card_matches_cpu(dev, tmp_path):
     rng = np.random.default_rng(5)
     path = tmp_path / "r.fastq.gz"
@@ -111,3 +192,27 @@ def test_engine_on_card_matches_cpu(dev, tmp_path):
         outs[d] = (tmp_path / d / "telolengths_all.csv").read_bytes()
     assert outs["cuda"] == outs["cpu"] and outs["cpu"].count(b"\n") > 10
     assert os.path.exists(tmp_path / "cuda" / "r.fastq_trc_over_0.7.fastq")
+
+
+def test_engine_mixed_table_and_rawcounts_on_card_match_cpu(dev, tmp_path):
+    """--telophrase 7 (a mixed table) with --rawcountpattern: the CSV and
+    every rawcount CSV from the card equal the CPU's."""
+    pytest.importorskip("pandas")
+    rng = np.random.default_rng(6)
+    path = tmp_path / "r.fastq.gz"
+    pat = np.resize(np.frombuffer(b"CCCTAAA", np.uint8), 4000)
+    with gzip.open(path, "wb") as fh:
+        for i in range(24):
+            seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 12000)]
+            if i % 2 == 0:
+                n = int(rng.integers(800, 4000))
+                seq[:n] = pat[:n]
+            fh.write(b"@r%d\n%s\n+\n%s\n" % (i, seq.tobytes(), b"I" * len(seq)))
+    outs = {}
+    for d in ("cuda", "cpu"):
+        cfg = TopsicleConfig(input_dir=str(path), output_dir=str(tmp_path / d),
+                             pattern="CCCTAAA", slide=6, batch_size=8, telophrase=[7],
+                             rawcountpattern=True)
+        TorchEngine(cfg, device=d).run()
+        outs[d] = {p.name: p.read_bytes() for p in sorted((tmp_path / d).glob("*.csv"))}
+    assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 3

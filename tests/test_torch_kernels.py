@@ -152,12 +152,18 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     a, b = _wire(codes, lens, True)
     args = (torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(table))
     kw = dict(k=5, window_size=100, slide=6, L=1024, lean=True)
+    ckw = dict(k=5, J=95, W=(1024 - 100) // 6 + 1, slide=6, L=1024, lean=True)
     before = dict(cuda_kernels.LAUNCHES)
     y = cuda_kernels.sum_signal(*args, **kw)
     assert torch.equal(y, cuda_kernels.sum_signal_plain(*args, **kw))
+    assert torch.equal(cuda_kernels.greedy_signal(*args, **kw),
+                       cuda_kernels.greedy_signal_plain(*args, **kw))
+    assert torch.equal(cuda_kernels.greedy_counts(*args, **ckw),
+                       cuda_kernels.greedy_counts_plain(*args, **ckw))
     assert cuda_kernels.LAUNCHES == before
     cuda_kernels.reset_launch_counts()
-    assert cuda_kernels.LAUNCHES == {"sum_signal": 0}
+    assert cuda_kernels.LAUNCHES == {"sum_signal": 0, "greedy_signal": 0,
+                                     "greedy_counts": 0}
 
 
 def test_sum_signal_envelope_raises():
@@ -196,6 +202,46 @@ def test_failed_build_raises(tmp_path, monkeypatch):
         cuda_kernels.build_library()
     assert not list((tmp_path / "build").glob("*.so*"))
     assert cuda_kernels.library_path().parent == tmp_path / "build"
+
+
+def test_library_path_covers_every_source(tmp_path, monkeypatch):
+    """Editing any csrc/*.cu, not only the first, names a new library,
+    so a stale one is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text("// a\n")
+    (csrc / "b.cu").write_text("// b\n")
+    monkeypatch.setattr(cuda_kernels, "CSRC", csrc)
+    first = cuda_kernels.library_path()
+    (csrc / "b.cu").write_text("// b, edited\n")
+    assert cuda_kernels.library_path() != first
+    assert [p.name for p in cuda_kernels.sources()] == ["a.cu", "b.cu"]
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc -c per source, then one link into the library; the
+    compilers' output lands in the log beside it, the objects do not
+    stay."""
+    calls = tmp_path / "calls.txt"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(f'#!/bin/sh\necho "$@" >> {calls}\necho "ptxas info: $#"\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", str(nvcc.parent) + os.pathsep + os.environ["PATH"])
+    monkeypatch.setattr(cuda_kernels, "BUILD_DIR", tmp_path / "build")
+    so = cuda_kernels.build_library()
+    assert so.exists() and so.parent == tmp_path / "build"
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in ln]
+    assert sorted(ln.split()[-1] for ln in compiles) == \
+        sorted(str(p) for p in cuda_kernels.sources())
+    assert len(cuda_kernels.sources()) == 2 and len(lines) == 3
+    assert "-shared" in lines[-1] and lines[-1].count(".o") == 2
+    assert so.with_suffix(".log").read_text().count("ptxas info") == 3
+    assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [so.with_suffix(".log").name,
+                                                                       so.name]
+    assert cuda_kernels.build_library() == so and len(calls.read_text().splitlines()) == 3
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):

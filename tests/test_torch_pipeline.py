@@ -2,13 +2,15 @@
 CSV and subset FASTQ must be byte-identical to JaxEngine's and
 OracleEngine's (multi-k, --threads, --resume included), the CLI must run
 with jax blocked (the machine with the card has none), and every case
-this slice does not serve must be refused with a clear error."""
+the port does not serve must be refused with a clear error."""
 
+import gzip
 import os
 import random
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -145,15 +147,13 @@ def test_torch_engine_read_check(synthetic, tmp_path):
     assert lines[1:] == [rows[0]]
 
 
-def test_cli_with_jax_blocked(synthetic, tmp_path):
-    """The machine with the card has no jax: the port's CLI must run with
-    every jax import failing, and write the oracle's CSV."""
-    data, oracle = synthetic
+def _cli_with_jax_blocked(args, data, out):
+    """Run the port's CLI in a subprocess where every jax import fails;
+    assert it ran and left no jax-backed module loaded."""
     code = ("import sys; sys.modules['jax'] = None\n"
             "from topsicle_tpu_torch.cli import main\n"
-            f"rc = main(['--inputDir', {str(data)!r}, '--outputDir', {str(tmp_path)!r},"
-            " '--pattern', 'CCCTAAA', '--slide', '6', '--batchSize', '8',"
-            " '--device', 'cpu'])\n"
+            f"rc = main(['--inputDir', {str(data)!r}, '--outputDir', {str(out)!r},"
+            f" '--batchSize', '8', '--device', 'cpu', *{args!r}])\n"
             "assert not [m for m in sys.modules if m.startswith('jax') and m != 'jax']\n"
             "assert not [m for m in sys.modules if m.startswith(('topsicle_tpu.ops',"
             " 'topsicle_tpu.models', 'topsicle_tpu.parallel'))]\n"
@@ -163,19 +163,112 @@ def test_cli_with_jax_blocked(synthetic, tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "All telomere found, have a nice day." in proc.stdout
+
+
+def test_cli_with_jax_blocked(synthetic, tmp_path):
+    """The machine with the card has no jax: the port's CLI must run with
+    every jax import failing, and write the oracle's CSV."""
+    data, oracle = synthetic
+    _cli_with_jax_blocked(["--pattern", "CCCTAAA", "--slide", "6"], data, tmp_path)
     assert _bytes(tmp_path) == _bytes(oracle)
     assert _bytes(tmp_path, SUBSET) == _bytes(oracle, SUBSET)
 
 
+def test_cli_with_jax_blocked_mixed_table(synthetic, tmp_path):
+    """The same at --telophrase 7, a mixed table (8 of 14 entries
+    periodic): the greedy kernel's path needs no jax either."""
+    data, _ = synthetic
+    _cli_with_jax_blocked(["--pattern", "CCCTAAA", "--slide", "6", "--telophrase", "7"],
+                          data, tmp_path / "t")
+    OracleEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path / "o"),
+                                pattern="CCCTAAA", slide=6, telophrase=[7])).run()
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "o")
+    assert _bytes(tmp_path / "t", SUBSET) == _bytes(tmp_path / "o", SUBSET)
+    assert b",7," in _bytes(tmp_path / "t")
+
+
+def _outputs(out, glob):
+    return {p.name: p.read_bytes() for p in sorted(out.glob(glob))}
+
+
+@pytest.mark.parametrize("pattern,kw", [
+    ("CCCTAAA", dict(telophrase=[6, 7])),    # mixed: 4 and 8 of 14 periodic
+    ("CCCTAA", dict(telophrase=[5])),        # human, mixed: 2 of 12 periodic
+    ("CCCTAAA", dict(use_pallas="greedy")),  # --kernel greedy, aperiodic k=5
+    ("CCCTAA", dict(use_pallas="sum")),      # --kernel sum falls back to greedy
+])
+def test_torch_engine_greedy_tables_match_jax_and_oracle(pattern, kw, tmp_path):
+    """Tables and kernels the greedy kernel serves: CSV and subset files
+    byte-identical to JaxEngine's and OracleEngine's."""
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(len(pattern)), n_reads=24,
+                           pattern=pattern)
+    base = dict(input_dir=str(data), pattern=pattern, slide=6, **kw)
+    TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), batch_size=8, **base),
+                device="cpu").run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), batch_size=8, **base)).run()
+    OracleEngine(TopsicleConfig(output_dir=str(tmp_path / "o"), **base)).run()
+    got = _bytes(tmp_path / "t")
+    assert got == _bytes(tmp_path / "j") == _bytes(tmp_path / "o")
+    assert got.count(b"\n") > 4
+    subsets = _outputs(tmp_path / "t", "*.fastq")
+    assert subsets and subsets == _outputs(tmp_path / "j", "*.fastq") == \
+        _outputs(tmp_path / "o", "*.fastq")
+
+
+@pytest.mark.parametrize("phrase", [5, 7])
+def test_torch_engine_rawcountpattern(synthetic, tmp_path, phrase):
+    """--rawcountpattern: every rawcount_{k}_{n}.csv byte-identical to
+    JaxEngine's, for the aperiodic k=5 table and the mixed k=7 one."""
+    data, _ = synthetic
+    kw = dict(input_dir=str(data), pattern="CCCTAAA", slide=6, batch_size=8,
+              telophrase=[phrase], rawcountpattern=True)
+    TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw), device="cpu").run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    raw = _outputs(tmp_path / "t", "rawcount_*.csv")
+    assert len(raw) >= 3 and raw == _outputs(tmp_path / "j", "rawcount_*.csv")
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j")
+
+
+def test_torch_engine_plot(tmp_path):
+    """--plot: the same PNG names as JaxEngine, and the same CSV."""
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(3), n_reads=8)
+    kw = dict(input_dir=str(data), pattern="CCCTAAA", slide=6, batch_size=8, plot=True)
+    TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw), device="cpu").run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    names = set(_outputs(tmp_path / "t", "plot_*.png"))
+    assert names and names == set(_outputs(tmp_path / "j", "plot_*.png"))
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j")
+
+
+def test_torch_engine_truncated_file_removes_partial_extras(tmp_path):
+    """tests/test_reader_envelope.py's case: --rawcountpattern files that a
+    unit's early batches wrote are removed when the unit later fails
+    mid-stream, and the unit contributes no row."""
+    rng = np.random.default_rng(11)
+    indir = tmp_path / "in"
+    indir.mkdir()
+    buf = []
+    for i in range(12):
+        seq = ("CCCTAAA" * 220)[:1500] + "".join(rng.choice(list("ACGT"), 9100))
+        buf.append(f"@t{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    payload = gzip.compress("".join(buf).encode())
+    (indir / "trunc.fastq.gz").write_bytes(payload[: len(payload) // 2])
+    out = tmp_path / "o"
+    cfg = TopsicleConfig(input_dir=str(indir), output_dir=str(out), pattern="CCCTAAA",
+                         slide=6, batch_size=4, maxlengthtelo=2048, rawcountpattern=True,
+                         native_io=False)
+    assert TorchEngine(cfg, device="cpu").run() == []
+    assert "skipping this file" in (out / "topsicle_run.log").read_text()
+    assert not list(out.glob("rawcount_*.csv"))
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(use_pallas=False), "--kernel xla"),
-    (dict(use_pallas="greedy"), "--kernel greedy"),
     (dict(use_pallas="bogus"), "unknown kernel"),
-    (dict(plot=True), "--plot"),
-    (dict(rawcountpattern=True), "--rawcountpattern"),
     (dict(shard_mode="global"), "--shardMode global"),
     (dict(process_count=2, process_id=0), "--processCount"),
-    (dict(pattern="CCCTAA", telophrase=[5]), "greedy kernel"),      # mixed table
     (dict(pattern="CCCTAAACC", telophrase=[16]), "k>15"),
 ])
 def test_torch_engine_refuses(kw, match, tmp_path):
@@ -185,8 +278,7 @@ def test_torch_engine_refuses(kw, match, tmp_path):
         TorchEngine(TopsicleConfig(**cfg), device="cpu")
 
 
-@pytest.mark.parametrize("extra", [["--kernel", "xla"], ["--kernel", "greedy"],
-                                   ["--plot"], ["--coordinator", "localhost:1"]])
+@pytest.mark.parametrize("extra", [["--kernel", "xla"], ["--coordinator", "localhost:1"]])
 def test_cli_refuses(synthetic, tmp_path, extra):
     data, _ = synthetic
     rc = cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path),

@@ -2,7 +2,17 @@
 topsicle_tpu (same flags, same run-log lines, same outputs) on the
 torch engine, plus --device {cuda,cpu}.
 
-Run from a checkout with `python -m topsicle_tpu_torch.cli ...`.
+Every k-mer table with k <= 15 is served (aperiodic, periodic and mixed,
+any number of entries), with --telophrase sweeps, --kernel auto|sum|greedy,
+--rawcountpattern and --plot.  Refused, each with its ROADMAP item:
+k > 15, --kernel xla, --shardMode global, --processCount > 1 and
+--coordinator.
+
+Run from a checkout with `python -m topsicle_tpu_torch.cli ...`, e.g. a
+mixed-table sweep on the card:
+
+    python -m topsicle_tpu_torch.cli --inputDir reads.fastq.gz \\
+        --outputDir out --pattern CCCTAA --telophrase 5 6 --device cuda
 """
 
 from __future__ import annotations
@@ -22,6 +32,12 @@ def build_parser():
                    help="Torch device: 'cuda' runs the hand-written kernels on "
                         "the card (and fails without one); 'cpu' runs their "
                         "plain torch versions")
+    p._option_string_actions["--kernel"].help = (
+        "Step-2 window-signal kernel: 'auto' (default) and 'sum' take the "
+        "CUDA sum kernel when every k-mer of the table is aperiodic and it "
+        "has at most 31 entries, else the CUDA greedy kernel ('sum' warns "
+        "then); 'greedy' always takes the greedy kernel, exact for every "
+        "table; 'xla' is refused (the port has no XLA path)")
     return p
 
 

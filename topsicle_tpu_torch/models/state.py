@@ -1,8 +1,9 @@
 """Carry a JAX model's state into the torch port.
 
 `TorchScanModel(**state_from_jax(jax_model), device=...)` scans with the
-same k-mer table (as numpy), k, window geometry and changepoint
-candidates as the TelomereScanModel it came from, so tests can hold the
+same k-mer table (as numpy), k, window geometry, changepoint candidates
+and step-2 kernel choice (the JAX model's `pallas_kind`: None, "sum" or
+"greedy") as the TelomereScanModel it came from, so tests can hold the
 two against each other from one state.  Reads attributes only: nothing
 here imports jax.
 """
@@ -22,4 +23,5 @@ def state_from_jax(model) -> dict:
         "slide": int(model.slide),
         "jump": int(model.jump),
         "min_size": int(model.min_size),
+        "kernel": model.pallas_kind,
     }

@@ -1,12 +1,17 @@
 """TorchScanModel: the device API the engine calls, on torch.
 
-Counterpart of topsicle_tpu/models/telomere.py::TelomereScanModel, for
-the tables this slice serves (fully aperiodic, K <= 31, k <= 15):
+Counterpart of topsicle_tpu/models/telomere.py::TelomereScanModel for
+every table with k <= 15:
 
-  step 1: [B, 2, no_bp] end codes -> [B, 2, K] occurrence counts (plain
-          torch: unpack, rolling codes, match, sum)
-  step 2: [B, L] tail codes -> (t, has): the CUDA sum-signal kernel
-          (ops.cuda_kernels.sum_signal) then the exact changepoint
+  step 1: [B, 2, no_bp] end codes -> [B, 2, K] greedy counts: occurrence
+          sums in plain torch for aperiodic tables, else the CUDA greedy
+          kernel with one window over each end (ops.greedy_counts)
+  step 2: [B, L] tail codes -> (t, has): a window-signal kernel, then
+          the exact changepoint.  The sum kernel (ops.sum_signal) for
+          aperiodic tables with K <= 31, the greedy kernel
+          (ops.greedy_signal) for the rest or when asked for
+  rawcounts: [B, L] tail codes -> [B, K, W] per-entry greedy counts, no
+          floor (ops.greedy_counts), for --rawcountpattern and --plot
 
 Batches ship on the lean wire (2 bits/base + lengths) when every read's
 valid prefix is pure ACGT, else on the dense wire (+ an invalid bit-plane),
@@ -16,6 +21,7 @@ result to pinned host memory without blocking; `np.asarray(handle)` waits.
 
 from __future__ import annotations
 
+import warnings
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -66,29 +72,39 @@ def unsupported(what: str, item: str) -> ValueError:
 
 
 def check_table(kmers: Sequence[str]) -> None:
-    """Raise for tables outside this slice: k > 15 (the host oracle
-    fallback), periodic or mixed tables and K > 31 (the greedy kernel).
-    Occurrence counting equals the reference's greedy non-overlapping
-    count only when no entry self-overlaps."""
+    """Raise for tables outside the port: k > 15, the host oracle
+    fallback."""
     k = len(kmers[0])
     if k > ops.MAX_ROLLING_K:
         raise unsupported(f"telophrase {k} > {ops.MAX_ROLLING_K}",
                           "queue 1 item 5, the k>15 oracle fallback")
-    if not all(aperiodic_mask(kmers)):
-        raise unsupported("a periodic or mixed k-mer table",
-                          "queue 2 item 2, the greedy kernel")
-    if len(kmers) > ops.cuda_kernels.MAX_ENTRIES:
-        raise unsupported(f"a table of {len(kmers)} > 31 k-mers",
-                          "queue 2 item 2, the greedy kernel")
+
+
+def resolve_kernel(requested) -> str | None:
+    """The step-2 kernel asked for, as TopsicleConfig.use_pallas holds it:
+    None (auto), "sum", or "greedy" (True is the legacy spelling).  The
+    port has no XLA path, so False and every other value raise."""
+    if requested is None or requested in ("sum", "greedy"):
+        return requested
+    if requested is True:
+        return "greedy"
+    raise ValueError(f"unknown kernel {requested!r} (expected None, 'sum' or 'greedy')")
 
 
 class TorchScanModel:
     """Bound to one k-mer table; the host-facing API of TelomereScanModel
-    (numpy in, handles out) on one torch device."""
+    (numpy in, handles out) on one torch device.
+
+    `kernel` picks step 2's signal kernel: "sum" and auto (None) take the
+    sum kernel when the table is inside its envelope (every entry
+    aperiodic, K <= 31), and the greedy kernel otherwise; "greedy" always
+    takes the greedy kernel.  "sum" outside the envelope warns and takes
+    the greedy kernel, as the JAX model does."""
 
     def __init__(self, kmers: Sequence[str], *, device: str | torch.device = "cuda",
                  window_size: int = 100, slide: int = 7, jump: int = 5,
-                 min_size: int = 2, k: int | None = None, table=None):
+                 min_size: int = 2, k: int | None = None, table=None,
+                 kernel: str | None = None):
         if not kmers:
             raise ValueError("empty k-mer table")
         self.kmers = list(kmers)
@@ -101,6 +117,14 @@ class TorchScanModel:
         self.jump = jump
         self.min_size = min_size
         check_table(self.kmers)
+        requested = resolve_kernel(kernel)
+        self.aperiodic = all(aperiodic_mask(self.kmers))
+        in_sum_envelope = self.aperiodic and self.K <= ops.cuda_kernels.MAX_ENTRIES
+        self.kernel = "sum" if requested != "greedy" and in_sum_envelope else "greedy"
+        if requested == "sum" and self.kernel != "sum":
+            warnings.warn("kernel 'sum' requires a table of aperiodic k-mers with "
+                          f"K <= {ops.cuda_kernels.MAX_ENTRIES} entries; falling back "
+                          "to 'greedy'")
         packed = pack_kmer_table(self.kmers) if table is None \
             else np.asarray(table, dtype=np.int32)
         if packed.shape != (self.K,):
@@ -123,19 +147,28 @@ class TorchScanModel:
         p, m = batching.pack_batch(codes)
         return ("dense", p, m)
 
+    def _wire_to_device(self, packed):
+        """A pack_scan_batch result -> (codes_wire, aux, L, lean) on the device."""
+        kind, a, b = packed
+        return self._to_device(a), self._to_device(b), a.shape[-1] * 4, kind == "lean"
+
     # ---- step 1 ------------------------------------------------------------
     def step1_counts_launch(self, ends_codes: np.ndarray,
                             ends_len: np.ndarray | None = None) -> HostResult:
         """[B, 2, no_bp] uint8 (+ [B] valid lengths) -> handle of [B, 2, K]
-        int32 occurrence counts of each table entry in each end."""
+        int32 greedy counts of each table entry in each end."""
         B = ends_codes.shape[0]
         flat = ends_codes.reshape(B * 2, -1)
         lens = None if ends_len is None else np.repeat(ends_len, 2)
-        kind, a, b = self.pack_scan_batch(flat, lens)
-        codes = ops.unpack_wire(self._to_device(a), self._to_device(b), a.shape[-1] * 4,
-                                lean=kind == "lean")
-        match = ops.match_positions(codes, self.table, self.k)
-        return HostResult(ops.greedy_count_sum(match, self.k).reshape(B, 2, -1))
+        a, b, L, lean = self._wire_to_device(self.pack_scan_batch(flat, lens))
+        if self.aperiodic:
+            codes = ops.unpack_wire(a, b, L, lean=lean)
+            counts = ops.greedy_count_sum(ops.match_positions(codes, self.table, self.k),
+                                          self.k)
+        else:
+            counts = ops.greedy_counts(a, b, self.table, k=self.k, J=L - self.k + 1, W=1,
+                                       slide=1, L=L, lean=lean)
+        return HostResult(counts.reshape(B, 2, -1))
 
     def step1_counts(self, ends_codes: np.ndarray,
                      ends_len: np.ndarray | None = None) -> np.ndarray:
@@ -144,13 +177,12 @@ class TorchScanModel:
     # ---- step 2 ------------------------------------------------------------
     def step2_boundary_launch_packed(self, packed, n_windows: np.ndarray
                                      ) -> Tuple[HostResult, HostResult]:
-        """(t, has) handles for a pack_scan_batch result: the sum-signal
-        kernel on the wire as packed, then the exact changepoint."""
-        kind, a, b = packed
-        L = a.shape[-1] * 4
-        y = ops.sum_signal(self._to_device(a), self._to_device(b), self.table,
-                           k=self.k, window_size=self.window_size,
-                           slide=self.slide, L=L, lean=kind == "lean")
+        """(t, has) handles for a pack_scan_batch result: the model's
+        signal kernel on the wire as packed, then the exact changepoint."""
+        a, b, L, lean = self._wire_to_device(packed)
+        signal = ops.sum_signal if self.kernel == "sum" else ops.greedy_signal
+        y = signal(a, b, self.table, k=self.k, window_size=self.window_size,
+                   slide=self.slide, L=L, lean=lean)
         t, has = ops.binseg_l2_device(y, self._to_device(np.asarray(n_windows)),
                                       jump=self.jump, min_size=self.min_size)
         return HostResult(t), HostResult(has)
@@ -166,6 +198,23 @@ class TorchScanModel:
         """[B, L] uint8, [B] int32 -> (t [B] int64, has [B] bool)."""
         t, has = self.step2_boundary_launch(tail_codes, n_windows, lens)
         return np.asarray(t), np.asarray(has)
+
+    # ---- rawcounts (--rawcountpattern, --plot) -------------------------------
+    def rawcounts_launch_packed(self, packed) -> HostResult:
+        """Handle of the per-entry window counts [B, K, W] int32 (no or-1
+        floor; consumers apply it) on the same pack_scan_batch result as
+        the boundary launch: the greedy kernel without the floor, exact
+        for every table."""
+        a, b, L, lean = self._wire_to_device(packed)
+        return HostResult(ops.greedy_counts(
+            a, b, self.table, k=self.k, J=self.window_size - self.k,
+            W=self.num_windows(L), slide=self.slide, L=L, lean=lean))
+
+    def rawcounts(self, tail_codes: np.ndarray,
+                  lens: np.ndarray | None = None) -> np.ndarray:
+        """[B, L] uint8 -> [B, K, W] int32 per-window counts."""
+        return np.asarray(
+            self.rawcounts_launch_packed(self.pack_scan_batch(tail_codes, lens)))
 
     def num_windows(self, length: int) -> int:
         return ops.num_windows(length, self.window_size, self.slide)

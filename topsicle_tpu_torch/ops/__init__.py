@@ -3,10 +3,18 @@ kernels (cuda_kernels).  All integer, so results are bit-identical across
 the CPU, the card and the JAX reference."""
 
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device  # noqa: F401
-from topsicle_tpu_torch.ops.cuda_kernels import sum_signal, sum_signal_plain  # noqa: F401
+from topsicle_tpu_torch.ops.cuda_kernels import (  # noqa: F401
+    greedy_counts,
+    greedy_counts_plain,
+    greedy_signal,
+    greedy_signal_plain,
+    sum_signal,
+    sum_signal_plain,
+)
 from topsicle_tpu_torch.ops.match import (  # noqa: F401
     MAX_ROLLING_K,
     boundary_sum_signal,
+    greedy_count,
     greedy_count_sum,
     match_positions,
     num_windows,
@@ -14,4 +22,6 @@ from topsicle_tpu_torch.ops.match import (  # noqa: F401
     unpack_codes,
     unpack_codes_len,
     unpack_wire,
+    window_counts,
+    window_signal,
 )

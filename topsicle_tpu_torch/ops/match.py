@@ -1,15 +1,18 @@
 """k-mer matching on device: plain torch counterparts of
 topsicle_tpu/ops/match.py, with the same layouts ([B, L] uint8 codes,
-[B, K, Lp] match bits, [B, W] int32 window signal) and bit-identical
-integer results.
+[B, K, Lp] match bits, [B, K, W] per-entry window counts, [B, W] int32
+window signal) and bit-identical integer results.
 
-Only the aperiodic-table ("sum") path is here: greedy counting equals
-occurrence counting when no k-mer of the table self-overlaps
-(kmers.all_aperiodic), so no sequential scan is needed.  The periodic
-strategies wait for the greedy kernel (ROADMAP queue 2, item 2).
+Two counting paths, as in the JAX package:
+  - "sum" (boundary_sum_signal, greedy_count_sum): occurrence counting,
+    exact only for aperiodic tables (kmers.all_aperiodic), where no
+    k-mer self-overlaps and greedy counting needs no sequential scan;
+  - greedy (window_counts, greedy_count): the exact non-overlapping
+    count for every table, a (next_free, count) carry over the offsets.
 
-These run on the CPU in the tests and, on the card, carry step 1 and
-serve as the plain version the CUDA sum-signal kernel is held against.
+These run on the CPU in the tests and, on the card, carry step 1 for
+aperiodic tables and serve as the plain versions the CUDA kernels
+(ops.cuda_kernels) are held against.
 """
 
 from __future__ import annotations
@@ -91,6 +94,41 @@ def greedy_count_sum(match: torch.Tensor, k: int) -> torch.Tensor:
     count whenever the table is aperiodic (callers gate on it)."""
     del k
     return match.sum(dim=-1, dtype=torch.int32)
+
+
+def window_counts(match: torch.Tensor, k: int, J: int, W: int, slide: int) -> torch.Tensor:
+    """[B, K, Lp] match bits -> [B, K, W] int32 greedy non-overlapping
+    counts: window w reads offsets w*slide + j for j < J, and the chain
+    restarts at each window.  A match at offset j is taken when
+    j >= next_free, which then becomes j + k.  The twin of JAX
+    _window_counts_offset_scan: one step per offset on the whole
+    [B, K, W] carry.  Offsets past the end of `match` never match."""
+    B, K, Lp = match.shape
+    if J <= 0 or W <= 0:
+        return torch.zeros((B, K, max(W, 0)), dtype=torch.int32, device=match.device)
+    need = (W - 1) * slide + J          # one past the last offset any window reads
+    m = F.pad(match, (0, need - Lp)) if need > Lp else match
+    nf = torch.zeros((B, K, W), dtype=torch.int32, device=match.device)
+    cnt = torch.zeros_like(nf)
+    span = (W - 1) * slide + 1
+    for j in range(J):
+        take = m[..., j:j + span:slide] & (nf <= j)
+        nf = torch.where(take, j + k, nf)
+        cnt += take
+    return cnt
+
+
+def greedy_count(match: torch.Tensor, k: int) -> torch.Tensor:
+    """Greedy non-overlapping count per [B, K] row over the whole
+    position axis: len(re.finditer) semantics, the twin of JAX
+    greedy_count_chunked / greedy_count_full.  One window covering
+    every position."""
+    return window_counts(match, k, match.shape[-1], 1, 1)[..., 0]
+
+
+def window_signal(counts: torch.Tensor) -> torch.Tensor:
+    """[B, K, W] counts -> y_int [B, W] = sum over K of max(count, 1)."""
+    return counts.clamp_min(1).sum(dim=-2, dtype=torch.int32)
 
 
 def _shift_left_zero(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -7,10 +7,10 @@ batches in flight, subset emission, resume.  It replaces what touches
 JAX: the model (TorchScanModel), warmup, precompile, and `run`, whose
 JAX version imports the jax-backed `parallel` package.  This `run` is
 the single-process, files-mode loop of the reference engine; its CSV,
-subset files and aggregate lines are byte-identical to JaxEngine's.
+subset files and aggregate lines are byte-identical to JaxEngine's, and
+so are the --rawcountpattern CSVs and the names of the --plot PNGs.
 
-Cases this slice refuses (each is a ROADMAP item): periodic or mixed
-tables, k > 15, --kernel xla|greedy, --plot, --rawcountpattern,
+Cases the port refuses (each is a ROADMAP item): k > 15, --kernel xla,
 --shardMode global and more than one process.
 """
 
@@ -31,24 +31,17 @@ from topsicle_tpu.pipeline import JaxEngine
 from topsicle_tpu.utils.manifest import RunManifest
 from topsicle_tpu.utils.profiling import StageTimers
 from topsicle_tpu_torch.device import describe, resolve_device
-from topsicle_tpu_torch.models.telomere import TorchScanModel, check_table, unsupported
+from topsicle_tpu_torch.models.telomere import (TorchScanModel, check_table,
+                                                resolve_kernel, unsupported)
 from topsicle_tpu_torch.ops import cuda_kernels
 
 
 def refuse_unported(cfg: TopsicleConfig) -> None:
-    """Raise ValueError for configurations outside this slice."""
-    kernel = cfg.use_pallas
-    if kernel is False:
+    """Raise ValueError for configurations the port does not serve."""
+    if cfg.use_pallas is False:
         raise unsupported("--kernel xla (the port has no XLA path)",
                           "queue 1 item 5")
-    if kernel is True or kernel == "greedy":
-        raise unsupported("--kernel greedy", "queue 2 item 2, the greedy kernel")
-    if kernel not in (None, "sum"):
-        raise ValueError(f"unknown kernel {kernel!r} (expected auto or sum)")
-    if cfg.plot:
-        raise unsupported("--plot", "queue 1 item 8, rawcounts and plots")
-    if cfg.rawcountpattern:
-        raise unsupported("--rawcountpattern", "queue 1 item 8, rawcounts and plots")
+    resolve_kernel(cfg.use_pallas)
     if cfg.shard_mode != "files":
         raise unsupported(f"--shardMode {cfg.shard_mode}", "queue 1 item 9, multi-GPU")
     if (cfg.process_count or 1) > 1:
@@ -89,7 +82,8 @@ class TorchEngine(JaxEngine):
         if phrase not in self._models:
             model = TorchScanModel(kmers, device=self.device,
                                    window_size=self.cfg.window_size,
-                                   slide=self.cfg.slide_value())
+                                   slide=self.cfg.slide_value(),
+                                   kernel=self.cfg.use_pallas)
             self._warmup(model)
             self._models[phrase] = model
         return self._models[phrase]
@@ -109,14 +103,18 @@ class TorchEngine(JaxEngine):
         return 1 if self.device.type == "cuda" else 0
 
     # -- one (file, phrase) unit ---------------------------------------------
-    def _run_unit(self, path: str, kmers: Sequence[str], model, src, timers):
-        """Step 1 -> subset file -> step 2 for one unit.  Returns its rows
+    def _run_unit(self, path: str, phrase: int, kmers: Sequence[str], model, src,
+                  timers):
+        """Step 1 -> subset file -> step 2 (and the per-read extras of
+        --rawcountpattern/--plot) for one unit.  Returns its rows
         (read_id, trc, kmer, tail, bound) in input order, or None when the
-        input is unreadable (the unit then stays un-done for --resume)."""
+        input is unreadable: the unit then stays un-done for --resume, and
+        the extras files its early batches wrote are removed."""
         cfg = self.cfg
         self.log("subsetting raw dataset based on TRC cutoff")
         hit_ids: List[str] = []
         unit_rows: List[tuple] = []
+        image_num = 1
         try:
             if cfg.read_check is not None:
                 passers = self._step1_file(path, kmers, model, source=src)
@@ -136,7 +134,9 @@ class TorchEngine(JaxEngine):
                         hit_ids.append(p.read_id)
                         yield p
                 stream = tracked()
-            for group, bounds, _ in self._step2_batches(stream, model, timers=timers):
+            for group, bounds, extras in self._step2_batches(stream, model, timers=timers):
+                self._per_read_extras(group, model, phrase, bounds, image_num, extras)
+                image_num += len(group)
                 for p, b in zip(group, bounds):
                     unit_rows.append((p.read_id, p.trc, p.kmer, p.tail, b))
                     timers.count(reads=1, bases=p.seq_len)
@@ -146,6 +146,7 @@ class TorchEngine(JaxEngine):
                     self._write_subset(path, set(hit_ids))
         except reader.InputFileError as e:
             self.log(f"ERROR: {e}; skipping this file")
+            self._remove_unit_extras(phrase, image_num)
             return None
         finally:
             src.close()
@@ -232,7 +233,7 @@ class TorchEngine(JaxEngine):
                         for q in todo[j + 1:j + 1 + ahead]:
                             if q not in sources:
                                 sources[q] = self._read_source(q)
-                        rows = self._run_unit(path, kmers, model, src, timers)
+                        rows = self._run_unit(path, phrase, kmers, model, src, timers)
                         if rows is None:
                             continue
                         unit_trcs: List[float] = []
