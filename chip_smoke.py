@@ -24,6 +24,12 @@ line is printed):
                       duplicates, slide 1 / window 20 / k 7; y_int,
                       [B, K, W] counts and (t, has); and greedy_counts at
                       step 1's shape, [256, 1000] ends
+     and the sharded caller: ShardedScanModel over [cuda:0, cuda:0] (two
+     shards on the one card, the only split it allows) against one
+     TorchScanModel, bit for bit, at k = 5 and 7: step 1, step 2 on the
+     lean and dense wires at B = 128 x L = 19968, the packed API and
+     rawcounts, each shard launching its kernel (the counts double); and
+     a handle that syncs on its own card's stream
   4. end to end: a seeded 4,096-read gzipped FASTQ (~58 Mbp) through the
      port's CLI on the card, three paths, each with the launch counts set
      to 0 just before it and read just after:
@@ -32,8 +38,17 @@ line is printed):
        run's telolengths_all.csv (and subset FASTQ) must match the
        pure-Python OracleEngine's at that k byte for byte, and each path
        must have launched exactly the kernels it runs
+     then processes, each a CLI started with --device cuda that prints
+     its launch counts (which must not be 0): on four seeded files of
+     1,024 / 512 / 256 / 256 reads, one process (outputs byte-identical
+     to the oracle's), and two processes in files mode without and with
+     --coordinator and in --shardMode global (each byte-identical to the
+     one-process run, no .parts left); and a --pattern CCCTAAACC
+     --telophrase 9 16 sweep (k = 16 on the host) equal to the oracle's
   5. times, from the card: each kernel vs its plain version (CUDA events,
-     medians), the step-2 launch paths, and the end-to-end wall times
+     medians), the step-2 launch paths (one model and two shards), and
+     the end-to-end wall times, the multi-process ones included (on one
+     card: process overhead)
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -61,6 +76,12 @@ def _reads(rng, B, L, pattern="CCCTAAA", noise=0.05):
     telo = rng.integers(500, min(5000, max(502, L // 2)), B)
     keep = (np.arange(L)[None, :] < telo[:, None]) & (rng.random((B, L)) >= noise)
     return np.where(keep, np.resize(pat, L)[None, :], codes).astype(np.uint8)
+
+
+FILE_READS = (1024, 512, 256, 256)     # phase 4's skewed four-file directory
+K16_PATTERN, K16_PHRASES, K16_READS = "CCCTAAACC", [9, 16], 256
+K16_CUTOFF = 0.15      # 16-mers of a noisy 9-bp repeat keep TRC near 0.25
+MP_TIMEOUT = 300       # seconds a multi-process run may take
 
 
 def _cuda_ms(torch, fn, reps):
@@ -117,14 +138,14 @@ def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
     return total_bp
 
 
-def _start_oracle(repo, fq, out, phrase=None):
-    """OracleEngine on `fq` in a child process (pure Python, CPU only), so
-    the reference CSVs are written while the card checks the kernels."""
-    tel = "" if phrase is None else f", telophrase=[{phrase}]"
+def _start_oracle(repo, out, **cfg):
+    """OracleEngine in a child process (pure Python, CPU only) with the
+    TopsicleConfig fields `cfg`, so the reference CSVs are written while
+    the card checks the kernels."""
+    cfg.setdefault("pattern", "CCCTAAA")
     code = ("from topsicle_tpu.config import TopsicleConfig\n"
             "from topsicle_tpu.oracle import OracleEngine\n"
-            f"OracleEngine(TopsicleConfig(input_dir={fq!r}, output_dir={out!r}, "
-            f"pattern='CCCTAAA', slide=6{tel})).run()\n")
+            f"OracleEngine(TopsicleConfig(output_dir={out!r}, **{cfg!r})).run()\n")
     with open(out + ".log", "w") as log:
         return subprocess.Popen([sys.executable, "-c", code], cwd=repo,
                                 stdout=log, stderr=subprocess.STDOUT)
@@ -139,6 +160,201 @@ def _median_ms(torch, kern, plain, reps=25):
     tk = _cuda_ms(torch, kern, reps) + _cuda_ms(torch, kern, reps)
     tp += _cuda_ms(torch, plain, reps)
     return statistics.median(tk), statistics.median(tp)
+
+
+def _sharded_phase(torch, dev, batches, ends):
+    """Phase 3's sharded caller: ShardedScanModel over [dev, dev] (two
+    shards on one card, the only split one card allows) against one
+    TorchScanModel, bit for bit, at k=5 (sum kernel) and k=7 (greedy
+    kernel): step 1, step 2 on every (label, codes, lens) of `batches`,
+    the packed API and rawcounts.  Every shard launches its kernel: the
+    counts double.  Returns the lines to print."""
+    import numpy as np
+
+    from topsicle_tpu.io import batch as batching
+    from topsicle_tpu.kmers import telophrase_kmers
+    from topsicle_tpu_torch.models import TorchScanModel
+    from topsicle_tpu_torch.ops import cuda_kernels
+    from topsicle_tpu_torch.parallel import ShardedScanModel
+
+    lines = []
+    counts = cuda_kernels.LAUNCHES
+
+    def twice(label, kernel, single_fn, sharded_fn):
+        """Run both; each shard launches `kernel` once, the single model
+        once in all; the results must be identical."""
+        n0 = counts.get(kernel, 0)
+        want = single_fn()
+        n1 = counts.get(kernel, 0)
+        got = sharded_fn()
+        n2 = counts.get(kernel, 0)
+        if kernel is not None and dev.type == "cuda":
+            assert (n1 - n0, n2 - n1) == (1, 2), f"{label}: {kernel} launches " \
+                f"{n1 - n0} single, {n2 - n1} sharded (expected 1 and 2)"
+        for x, y in zip(want if isinstance(want, tuple) else (want,),
+                        got if isinstance(got, tuple) else (got,)):
+            assert np.array_equal(np.asarray(x), np.asarray(y)), f"{label}: differs"
+        return want
+
+    ends_len = np.full(ends.shape[0], ends.shape[2], np.int32)
+    for phrase in (5, 7):
+        single = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
+                                window_size=100, slide=6)
+        sharded = ShardedScanModel(single, [dev, dev])
+        kern = "sum_signal" if single.kernel == "sum" else "greedy_signal"
+        s1 = "plain torch sums" if single.aperiodic else "greedy_counts"
+        twice(f"k={phrase} step 1", None if single.aperiodic else "greedy_counts",
+              lambda: single.step1_counts(ends, ends_len),
+              lambda: sharded.step1_counts(ends, ends_len))
+        for label, codes, lens in batches:
+            nw = batching.window_counts_for_lengths(lens, 100, 6)
+            packed = sharded.pack_scan_batch(codes, lens)
+            assert packed[0] == label, f"{label} batch packed {packed[0]}"
+            want = twice(f"k={phrase} {label} step 2", kern,
+                         lambda: single.step2_boundary(codes, nw, lens),
+                         lambda: sharded.step2_boundary(codes, nw, lens))
+            twice(f"k={phrase} {label} packed", kern,
+                  lambda: tuple(np.asarray(x)
+                                for x in single.step2_boundary_launch_packed(packed, nw)),
+                  lambda: tuple(np.asarray(x)
+                                for x in sharded.step2_boundary_launch_packed(packed, nw)))
+            raw = np.asarray(sharded.rawcounts_launch_packed(packed))
+            assert np.array_equal(raw, single.rawcounts(codes, lens)), f"{label}: rawcounts"
+            lines.append(f"[shard] k={phrase} {label} B={codes.shape[0]} L={codes.shape[1]}: "
+                         f"two shards on {dev} (one card: the only split it allows) == one "
+                         f"model bit for bit in (t, has), packed API and rawcounts; {kern} "
+                         f"launched once per shard; {int(want[1].sum())} boundaries")
+        lines.append(f"[shard] k={phrase} step 1 ({s1}) [{ends.shape[0]}, 2, "
+                     f"{ends.shape[2]}]: two shards == one model bit for bit")
+    # a handle syncs on its own card's stream whichever card is current
+    # (with one card, current and own are the same card)
+    label, codes, lens = batches[0]
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    with torch.cuda.device(torch.cuda.device_count() - 1):
+        t, has = single.step2_boundary_launch(codes, nw, lens)
+    assert np.array_equal(np.asarray(t), single.step2_boundary(codes, nw, lens)[0])
+    lines.append(f"[shard] a {dev} handle launched under cuda:"
+                 f"{torch.cuda.device_count() - 1} current syncs on its own stream")
+    return lines
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# a child of phase 4: the port's CLI, then its kernel launch counts
+_CHILD = ("import json, sys\n"
+          "sys.path.insert(0, {repo!r})\n"
+          "from topsicle_tpu_torch import cli\n"
+          "from topsicle_tpu_torch.ops import cuda_kernels\n"
+          "rc = cli.main({argv!r})\n"
+          "print('LAUNCHES ' + json.dumps(cuda_kernels.LAUNCHES))\n"
+          "sys.exit(rc)\n")
+
+
+def _run_processes(repo, argvs, device_line, card=True):
+    """Start one CLI process per argv, all at once; each must exit 0
+    within MP_TIMEOUT s, name its device in its log and, on a `card`,
+    launch kernels.
+    Kills any process left.  Returns (wall seconds, [launch counts])."""
+    import json
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", _CHILD.format(repo=repo, argv=a)],
+                              cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for a in argvs]
+    try:
+        outs = [p.communicate(timeout=MP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    launches = []
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"process {i} exited {p.returncode}:\n{err[-3000:]}"
+        assert device_line in out, f"process {i}: no '{device_line}' in its log"
+        got = [json.loads(x[len("LAUNCHES "):]) for x in out.splitlines()
+               if x.startswith("LAUNCHES ")]
+        assert got and (sum(got[0].values()) > 0 or not card), \
+            f"process {i} launched no kernel: {got}"
+        launches.append(got[0])
+    return wall, launches
+
+
+def _outputs(out):
+    """The CSV and subset files of a run directory, by name."""
+    return {n: open(os.path.join(out, n), "rb").read() for n in sorted(os.listdir(out))
+            if n == "telolengths_all.csv" or n.endswith(".fastq")}
+
+
+def _multiprocess_phase(repo, work, files, device, device_line):
+    """Phase 4's multi-process runs on the four-file directory: one
+    process (byte-identical to the oracle's outputs), then two processes
+    in files mode without and with --coordinator, and in --shardMode
+    global; each byte-identical to the single run, no .parts left.
+    Returns {label: (wall, [launch counts per process])}."""
+    common = ["--inputDir", files, "--pattern", "CCCTAAA", "--slide", "6",
+              "--batchSize", "128", "--device", device]
+    runs = {}
+    out = os.path.join(work, "mp_single")
+    card = device == "cuda"
+    runs["1 process"] = _run_processes(repo, [common + ["--outputDir", out]], device_line,
+                                       card)
+    want = _outputs(out)
+    oracle = _outputs(os.path.join(work, "oraclefiles"))
+    assert want == oracle, "one-process run differs from the oracle"
+    assert len(want) == 1 + len(FILE_READS), sorted(want)
+    for label, extra in (("2 processes, files", []),
+                         ("2 processes, files, --coordinator", ["--coordinator", None]),
+                         ("2 processes, --shardMode global",
+                          ["--shardMode", "global", "--coordinator", None])):
+        out = os.path.join(work, "mp_" + label.replace(" ", "_").replace(",", ""))
+        port = f"127.0.0.1:{_free_port()}"
+        argvs = [common + ["--outputDir", out, "--processId", str(pid), "--processCount",
+                           "2", *[port if x is None else x for x in extra]]
+                 for pid in (0, 1)]
+        runs[label] = _run_processes(repo, argvs, device_line, card)
+        assert _outputs(out) == want, f"{label}: outputs differ from the one-process run"
+        assert not os.path.exists(os.path.join(out, ".parts")), f"{label}: .parts left"
+    return runs
+
+
+def _k16_phase(work, k16, device, device_line):
+    """Phase 4's k>15 sweep through the CLI: k=9 on the card, k=16 on the
+    host oracle model with its WARNING line; outputs byte-identical to
+    the oracle's.  Returns the line to print."""
+    from topsicle_tpu_torch import cli
+    from topsicle_tpu_torch.ops import cuda_kernels
+
+    out = os.path.join(work, "port_k16")
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["--inputDir", k16, "--outputDir", out, "--pattern", K16_PATTERN,
+                   "--telophrase", *map(str, K16_PHRASES), "--cutoff", str(K16_CUTOFF),
+                   "--batchSize", "128", "--device", device])
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_kernels.LAUNCHES)
+    assert rc == 0, f"k>15 sweep: port CLI exited {rc}"
+    log = open(os.path.join(out, "topsicle_run.log")).read()
+    assert device_line in log, "k>15 sweep: not run on the card"
+    assert "WARNING: telophrase 16 exceeds the device k-mer capacity (15)" in log
+    got = _outputs(out)
+    assert got == _outputs(os.path.join(work, "oraclek16")), "k>15 sweep differs from the oracle"
+    csv = got["telolengths_all.csv"]
+    rows = {k: csv.count(b",%d," % k) for k in K16_PHRASES}
+    assert rows[9] > 0, f"k>15 sweep: rows per k {rows}"
+    if device != "cpu":
+        assert sum(launches.values()) > 0, "k>15 sweep: k=9 launched no kernel"
+    return (f"[k16] --pattern {K16_PATTERN} --telophrase 9 16 --cutoff {K16_CUTOFF} on "
+            f"{K16_READS} reads: rows per k {rows}, CSV and subset byte-identical to the "
+            f"oracle; k=16 on the host with the WARNING line; launches {launches}; "
+            f"wall {wall:.2f} s")
 
 
 def main() -> int:
@@ -176,10 +392,27 @@ def main() -> int:
     fq = os.path.join(work, "reads.fastq.gz")
     bp = _write_fastq(fq, np.random.default_rng(7))
     print(f"[e2e] wrote 4096 reads, {bp / 1e6:.1f} Mbp")
-    oracles = {5: _start_oracle(repo, fq, os.path.join(work, "oracle5")),
-               7: _start_oracle(repo, fq, os.path.join(work, "oracle7"), 7)}
+    files = os.path.join(work, "files")
+    os.makedirs(files)
+    rng = np.random.default_rng(8)
+    files_bp = sum(_write_fastq(os.path.join(files, f"part{i}.fastq.gz"), rng, n)
+                   for i, n in enumerate(FILE_READS))
+    print(f"[mp] wrote {len(FILE_READS)} files of {FILE_READS} reads, "
+          f"{files_bp / 1e6:.1f} Mbp")
+    k16 = os.path.join(work, "k16.fastq.gz")
+    _write_fastq(k16, np.random.default_rng(16), K16_READS, pattern=K16_PATTERN)
+    print(f"[k16] wrote {K16_READS} reads of {K16_PATTERN}")
+    oracles = {5: _start_oracle(repo, os.path.join(work, "oracle5"), input_dir=fq, slide=6),
+               7: _start_oracle(repo, os.path.join(work, "oracle7"), input_dir=fq, slide=6,
+                                telophrase=[7]),
+               "files": _start_oracle(repo, os.path.join(work, "oraclefiles"),
+                                      input_dir=files, slide=6),
+               "k16": _start_oracle(repo, os.path.join(work, "oraclek16"), input_dir=k16,
+                                    pattern=K16_PATTERN, telophrase=K16_PHRASES,
+                                    cutoff=[K16_CUTOFF])}
     try:
-        return _phases(torch, name, smi, repo, work, fq, bp, oracles)
+        return _phases(torch, name, smi, repo, work, fq, bp, oracles,
+                       (files, files_bp, k16))
     finally:
         for p in oracles.values():
             if p.poll() is None:
@@ -187,8 +420,9 @@ def main() -> int:
             p.wait()
 
 
-def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
-    """Phases 2-5; `oracles` are the running OracleEngine processes."""
+def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
+    """Phases 2-5; `oracles` are the running OracleEngine processes,
+    `mp_inputs` the four-file directory, its bases and the k>15 input."""
     import numpy as np
 
     from topsicle_tpu.io import batch as batching
@@ -329,13 +563,23 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
         print(f"[kernel] greedy_counts step 1 [256, 1000] {'lean' if lean else 'dense'}: "
               f"counts {tuple(c_k.shape)} bit-identical (max {int(c_k.max())})")
 
+    # ---- 3. the sharded caller, two shards on the one card ------------------
+    batches = []
+    for label in ("lean", "dense"):
+        codes, lens = ragged(_reads(rng, 128, L))
+        batches.append((label, codes if label == "lean" else dirty(codes), lens))
+    for line in _sharded_phase(torch, dev, batches,
+                               _reads(rng, 128, 2000).reshape(128, 2, 1000)):
+        print(line)
+    del batches
+
     # ---- 4. end to end ----------------------------------------------------
     for k, p in oracles.items():
         rc = p.wait(timeout=900)
         log = open(os.path.join(work, f"oracle{k}.log")).read()
-        assert rc == 0, f"OracleEngine k={k} exited {rc}:\n{log[-2000:]}"
-    print(f"[e2e] OracleEngine at k=5 and k=7 (two processes beside phases 2-3) done "
-          f"{time.perf_counter() - t_oracle:.1f} s after the build began")
+        assert rc == 0, f"OracleEngine {k} exited {rc}:\n{log[-2000:]}"
+    print(f"[e2e] OracleEngine on the four inputs ({len(oracles)} processes beside phases "
+          f"2-3) done {time.perf_counter() - t_oracle:.1f} s after the build began")
     sub = os.path.basename(writer.subset_path(work, fq, 0.7))
     e2e = {}
 
@@ -371,6 +615,14 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
     drive("--telophrase 7", "port7", "oracle7", ["greedy_signal", "greedy_counts"],
           "--telophrase", "7")
     drive("--kernel greedy k=5", "port5g", "oracle5", ["greedy_signal"], "--kernel", "greedy")
+    files, files_bp, k16 = mp_inputs
+    device_line = f"device: cuda:0 ({name})"
+    mp = _multiprocess_phase(repo, work, files, "cuda", device_line)
+    for label, (wall, launches) in mp.items():
+        print(f"[mp] {label} on {name}: CSV and {len(FILE_READS)} subsets byte-identical to "
+              f"{'the oracle' if label == '1 process' else 'the one-process run'}, no .parts "
+              f"left; kernel launches per process {launches}; wall {wall:.2f} s")
+    print(_k16_phase(work, k16, "cuda", device_line))
 
     # ---- 5. times ---------------------------------------------------------
     B = 128
@@ -416,6 +668,22 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
         print(f"[time] step-2 launch path k={phrase} ({model.kernel} kernel) B=128 (pack, "
               f"H2D, kernel, changepoint, D2H): {statistics.median(host):.3f} ms host clock, "
               f"{statistics.median(dev_ms):.3f} ms CUDA events, median of 20 ({smi})")
+    from topsicle_tpu_torch.parallel import ShardedScanModel
+
+    single = TorchScanModel(telophrase_kmers("CCCTAAA", 5), device=dev, window_size=100,
+                            slide=6)
+    sharded = ShardedScanModel(single, [dev, dev])
+    shard_ms = {"1 model": [], "2 shards": []}
+    for label, m in (("1 model", single), ("2 shards", sharded)) * 2:
+        m.step2_boundary(codes, nw, lens)
+        for _ in range(10):
+            t0 = time.perf_counter()
+            m.step2_boundary(codes, nw, lens)
+            shard_ms[label].append((time.perf_counter() - t0) * 1e3)
+    print(f"[time] sharded caller, step-2 launch path k=5 B=128: 2 shards on {dev} "
+          f"{statistics.median(shard_ms['2 shards']):.3f} ms, 1 model "
+          f"{statistics.median(shard_ms['1 model']):.3f} ms host clock, median of 20 each, "
+          f"in turns ({smi})")
     pack = []
     for _ in range(20):
         t0 = time.perf_counter()
@@ -431,6 +699,12 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles) -> int:
     for label, (wall, _) in e2e.items():
         print(f"[time] end to end {label}: {wall:.2f} s wall for 4096 reads = "
               f"{4096 / wall:.1f} reads/s, {bp / 1e6 / wall:.3f} Mbp/s ({smi})")
+    n_files = sum(FILE_READS)
+    for label, (wall, _) in mp.items():
+        print(f"[time] {label}, {len(FILE_READS)} files: {wall:.2f} s wall from process start "
+              f"for {n_files} reads = {n_files / wall:.1f} reads/s, "
+              f"{files_bp / 1e6 / wall:.3f} Mbp/s; every process on the one card, so this "
+              f"measures process overhead, not scaling ({smi})")
     shutil.rmtree(work, ignore_errors=True)
 
     src = "topsicle_tpu_torch/csrc/"

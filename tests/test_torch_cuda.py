@@ -19,7 +19,9 @@ from topsicle_tpu.config import TopsicleConfig
 from topsicle_tpu.io import batch as batching
 from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
 from topsicle_tpu_torch.models import TorchScanModel
+from topsicle_tpu_torch.models.telomere import HostResult
 from topsicle_tpu_torch.ops import cuda_kernels
+from topsicle_tpu_torch.parallel import ShardedScanModel
 from topsicle_tpu_torch.pipeline import TorchEngine
 
 pytestmark = pytest.mark.cuda
@@ -216,3 +218,41 @@ def test_engine_mixed_table_and_rawcounts_on_card_match_cpu(dev, tmp_path):
         TorchEngine(cfg, device=d).run()
         outs[d] = {p.name: p.read_bytes() for p in sorted((tmp_path / d).glob("*.csv"))}
     assert outs["cuda"] == outs["cpu"] and len(outs["cpu"]) > 3
+
+
+def test_host_result_syncs_on_its_own_card(dev):
+    """A handle of a result on cuda:1 made while cuda:0 is current waits
+    on cuda:1's stream: the copy has landed when np.asarray returns."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    d1 = torch.device("cuda", 1)
+    a = torch.randn(4096, 4096, device=d1)
+    for _ in range(8):                   # queue work ahead of the result on cuda:1
+        a = torch.tanh(a @ a)
+    t = (a[:1024, :1024] > 0).to(torch.int32) + torch.arange(1024, device=d1,
+                                                             dtype=torch.int32)
+    with torch.cuda.device(0):
+        h = HostResult(t)
+    np.testing.assert_array_equal(np.asarray(h), t.cpu().numpy())
+
+
+@pytest.mark.parametrize("phrase", [5, 7])
+def test_two_shards_on_one_card_match_single(dev, phrase):
+    """ShardedScanModel over [cuda:0, cuda:0]: the same (t, has), step-1
+    counts and rawcounts as one model, and each shard launches."""
+    kmers = telophrase_kmers("CCCTAAA", phrase)
+    single = TorchScanModel(kmers, device=dev, window_size=100, slide=6)
+    sharded = ShardedScanModel(single, [dev, dev])
+    codes, lens = _batch(phrase, 64, 19968, False)
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    name = "sum_signal" if phrase == 5 else "greedy_signal"
+    n0 = cuda_kernels.LAUNCHES[name]
+    got = sharded.step2_boundary(codes, nw, lens)
+    assert cuda_kernels.LAUNCHES[name] == n0 + 2
+    for x, y in zip(got, single.step2_boundary(codes, nw, lens)):
+        np.testing.assert_array_equal(x, y)
+    ends = codes[:, :2000].reshape(64, 2, 1000)
+    np.testing.assert_array_equal(sharded.step1_counts(ends), single.step1_counts(ends))
+    packed = sharded.pack_scan_batch(codes, lens)
+    np.testing.assert_array_equal(np.asarray(sharded.rawcounts_launch_packed(packed)),
+                                  single.rawcounts(codes, lens))

@@ -267,9 +267,6 @@ def test_torch_engine_truncated_file_removes_partial_extras(tmp_path):
 @pytest.mark.parametrize("kw,match", [
     (dict(use_pallas=False), "--kernel xla"),
     (dict(use_pallas="bogus"), "unknown kernel"),
-    (dict(shard_mode="global"), "--shardMode global"),
-    (dict(process_count=2, process_id=0), "--processCount"),
-    (dict(pattern="CCCTAAACC", telophrase=[16]), "k>15"),
 ])
 def test_torch_engine_refuses(kw, match, tmp_path):
     cfg = dict(input_dir="x", output_dir=str(tmp_path), pattern="CCCTAAA", slide=6)
@@ -278,7 +275,7 @@ def test_torch_engine_refuses(kw, match, tmp_path):
         TorchEngine(TopsicleConfig(**cfg), device="cpu")
 
 
-@pytest.mark.parametrize("extra", [["--kernel", "xla"], ["--coordinator", "localhost:1"]])
+@pytest.mark.parametrize("extra", [["--kernel", "xla"]])
 def test_cli_refuses(synthetic, tmp_path, extra):
     data, _ = synthetic
     rc = cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path),

@@ -2,17 +2,25 @@
 topsicle_tpu (same flags, same run-log lines, same outputs) on the
 torch engine, plus --device {cuda,cpu}.
 
-Every k-mer table with k <= 15 is served (aperiodic, periodic and mixed,
-any number of entries), with --telophrase sweeps, --kernel auto|sum|greedy,
---rawcountpattern and --plot.  Refused, each with its ROADMAP item:
-k > 15, --kernel xla, --shardMode global, --processCount > 1 and
---coordinator.
+Every k-mer table is served (aperiodic, periodic and mixed, any number
+of entries; k > 15 on the host for that phrase), with --telophrase
+sweeps, --kernel auto|sum|greedy, --rawcountpattern, --plot, every card
+the process sees, files mode over processes (--processId/--processCount,
+with or without --coordinator) and --shardMode global.  Refused:
+--kernel xla (the port has no XLA path).
 
 Run from a checkout with `python -m topsicle_tpu_torch.cli ...`, e.g. a
 mixed-table sweep on the card:
 
     python -m topsicle_tpu_torch.cli --inputDir reads.fastq.gz \\
         --outputDir out --pattern CCCTAA --telophrase 5 6 --device cuda
+
+or two processes in global mode, each on its own card:
+
+    for i in 0 1; do CUDA_VISIBLE_DEVICES=$i python -m topsicle_tpu_torch.cli \\
+        --inputDir reads/ --outputDir out --pattern CCCTAAA --device cuda \\
+        --shardMode global --coordinator 127.0.0.1:29500 \\
+        --processId $i --processCount 2 & done; wait
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import time
 from topsicle_tpu.cli import build_parser as build_reference_parser
 from topsicle_tpu.cli import config_from_args
 from topsicle_tpu.io.writer import RunLog
+from topsicle_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
 
 
 def build_parser():
@@ -60,12 +69,10 @@ def main(argv=None) -> int:
         return 2
     if args.telophrase is None:
         log(f"No telophrase provided, use kmer: {cfg.telophrases()}")
-    if args.coordinator:
-        log("--coordinator is not ported to the torch engine yet "
-            "(ROADMAP.md queue 1 item 9, multi-GPU)")
-        return 2
     log.plain("---------------------")
 
+    if args.coordinator:
+        initialize_distributed(args.coordinator, args.processCount, args.processId)
     try:
         if cfg.engine == "oracle":
             from topsicle_tpu.oracle import OracleEngine
@@ -89,6 +96,8 @@ def main(argv=None) -> int:
     except ValueError as e:
         log(str(e))
         return 2
+    finally:
+        shutdown_distributed()
 
     print(f"Elapsed time(s): {time.time() - start_time:.2f} seconds")
     return 0

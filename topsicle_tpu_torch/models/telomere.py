@@ -21,6 +21,7 @@ result to pinned host memory without blocking; `np.asarray(handle)` waits.
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Sequence, Tuple
 
@@ -48,10 +49,13 @@ class HostResult:
     def __init__(self, t: torch.Tensor):
         self._event = None
         if t.device.type == "cuda":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            # the copy and its event go on t's card's stream, whichever
+            # card is current: the event must follow the copy it marks
+            with torch.cuda.device(t.device):
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(t.device))
             self._host = host
         else:
             self._host = t
@@ -63,21 +67,6 @@ class HostResult:
         if dtype is not None:
             a = a.astype(dtype, copy=False)
         return a.copy() if copy else a
-
-
-def unsupported(what: str, item: str) -> ValueError:
-    """The error for a case the port refuses rather than serves."""
-    return ValueError(f"{what} is not ported to the torch engine yet "
-                      f"(ROADMAP.md {item}); use topsicle_tpu for it")
-
-
-def check_table(kmers: Sequence[str]) -> None:
-    """Raise for tables outside the port: k > 15, the host oracle
-    fallback."""
-    k = len(kmers[0])
-    if k > ops.MAX_ROLLING_K:
-        raise unsupported(f"telophrase {k} > {ops.MAX_ROLLING_K}",
-                          "queue 1 item 5, the k>15 oracle fallback")
 
 
 def resolve_kernel(requested) -> str | None:
@@ -116,7 +105,10 @@ class TorchScanModel:
         self.slide = slide
         self.jump = jump
         self.min_size = min_size
-        check_table(self.kmers)
+        if self.k > ops.MAX_ROLLING_K:
+            raise ValueError(
+                f"k={self.k} (k>{ops.MAX_ROLLING_K}) exceeds the device k-mer capacity; "
+                "TorchEngine computes such phrases on the host (models.oracle_model)")
         requested = resolve_kernel(kernel)
         self.aperiodic = all(aperiodic_mask(self.kmers))
         in_sum_envelope = self.aperiodic and self.K <= ops.cuda_kernels.MAX_ENTRIES
@@ -131,6 +123,13 @@ class TorchScanModel:
             raise ValueError(f"table shape {packed.shape} does not match {self.K} k-mers")
         self.device = device if isinstance(device, torch.device) else resolve_device(device)
         self.table = torch.from_numpy(packed.copy()).to(self.device)
+
+    def to(self, device: torch.device) -> "TorchScanModel":
+        """The same model (table, kernel, geometry) on another device."""
+        model = copy.copy(self)
+        model.device = torch.device(device)
+        model.table = self.table.to(model.device)
+        return model
 
     # ---- host -> device ----------------------------------------------------
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
