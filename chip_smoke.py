@@ -11,13 +11,21 @@ line is printed):
   1. environment: torch/CUDA versions, nvcc, the card's name and power
      limit, and which optional host modules (matplotlib, pandas) exist
   2. build: every CUDA kernel from topsicle_tpu_torch/csrc/, one nvcc per
-     source started together, timed
+     source started together, timed; and the port's C++ reader (g++)
   3. each kernel vs its plain torch version on the card, at the main
      paths' shapes (B = 128 and 1024 reads x L = 19968, window 100,
-     slide 6), bit-identical:
-       sum_signal:    CCCTAAA k = 5 on the lean and dense wires, a K = 31 /
-                      k = 13 table, slide 1 / window 20 / k 7; y_int and
-                      the changepoint's (t, has)
+     slide 6), bit-identical (integers: the tolerance is 0), with a
+     synchronize after each launch:
+       sum_signal and sum_boundary (the same body with the changepoint
+                      fused behind it): CCCTAAA k = 5 on the lean and
+                      dense (2% invalid) wires, a K = 31 / k = 13 table,
+                      slide 1 / window 20 / k 7, a read too short for
+                      a candidate (W < jump); y_int and (t, has), with
+                      ragged window counts that include 0, 3 and W
+       binseg_l2:     on every y above and below, and alone on a constant
+                      y (every candidate ties: the smallest t), a
+                      [4, 131080] y (the plain version's two-limb range)
+                      and y up to 2**30 (A**2 past 64 bits)
        greedy_signal and greedy_counts: CCCTAAA k = 7 (8 of 14 entries
                       periodic) on the lean and dense (2% invalid) wires,
                       CCCTAA k = 5, CCCTAAA k = 3, a K = 40 table with
@@ -31,13 +39,16 @@ line is printed):
      rawcounts, each shard launching its kernel (the counts double); and
      a handle that syncs on its own card's stream
   4. end to end: a seeded 4,096-read gzipped FASTQ (~58 Mbp) through the
-     port's CLI on the card, three paths, each with the launch counts set
+     port's CLI on the card, four paths, each with the launch counts set
      to 0 just before it and read just after:
-       k = 5 (auto: the sum kernel), --telophrase 7 (a mixed table: the
-       greedy kernel in steps 1 and 2) and --kernel greedy at k = 5; each
-       run's telolengths_all.csv (and subset FASTQ) must match the
-       pure-Python OracleEngine's at that k byte for byte, and each path
-       must have launched exactly the kernels it runs
+       k = 5 (auto: the fused sum kernel, sum_boundary), --telophrase 7 (a
+       mixed table: the greedy kernel in steps 1 and 2, then binseg_l2),
+       --kernel greedy at k = 5 (greedy_signal, then binseg_l2) and
+       --kernel sum at k = 5 (sum_signal, then binseg_l2); each run's
+       telolengths_all.csv (and subset FASTQ) must match the port's
+       pure-Python OracleEngine at that k byte for byte, each path must
+       have launched exactly the kernels it runs, and the plain torch
+       changepoint must have run 0 times on the card
      then processes, each a CLI started with --device cuda that prints
      its launch counts (which must not be 0): on four seeded files of
      1,024 / 512 / 256 / 256 reads, one process (outputs byte-identical
@@ -46,9 +57,18 @@ line is printed):
      one-process run, no .parts left); and a --pattern CCCTAAACC
      --telophrase 9 16 sweep (k = 16 on the host) equal to the oracle's
   5. times, from the card: each kernel vs its plain version (CUDA events,
-     medians), the step-2 launch paths (one model and two shards), and
-     the end-to-end wall times, the multi-process ones included (on one
-     card: process overhead)
+     medians: the time of one launch paced by the host, as every run of
+     this script has read it, and beside it the time with the launches
+     queued behind a matrix product so that they run back to back), each
+     kernel's bound (bytes over the card's memory rate or the integer
+     operations its function needs over the card's INT32 rate, whichever
+     is larger, from this run's inputs), the step-2 launch paths (one
+     model and two shards), and the end-to-end wall times, the
+     multi-process ones included (on one card: process overhead)
+
+`python3 chip_smoke.py --sum-signal-of DIR` runs none of this: it times the
+sum_signal entry of the checkout at DIR by phase 5's two methods and prints
+one line, so that two commits' kernels can be read in one call.
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -82,6 +102,11 @@ FILE_READS = (1024, 512, 256, 256)     # phase 4's skewed four-file directory
 K16_PATTERN, K16_PHRASES, K16_READS = "CCCTAAACC", [9, 16], 256
 K16_CUTOFF = 0.15      # 16-mers of a noisy 9-bp repeat keep TRC near 0.25
 MP_TIMEOUT = 300       # seconds a multi-process run may take
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+# 132 SMs x 64 INT32 lanes x 1.98 GHz: a quarter of the data sheet's 67
+# TFLOP/s of float32 (128 lanes, a fused multiply-add counted as two)
+INT32_OPS_PER_S = 67e12 / 4
+DELAY_N = 4096      # a float32 product of this order keeps the card busy ~3 ms
 
 
 def _cuda_ms(torch, fn, reps):
@@ -96,6 +121,40 @@ def _cuda_ms(torch, fn, reps):
         e.synchronize()
         out.append(s.elapsed_time(e))
     return out
+
+
+def _queued_ms(torch, fn, reps=20, rounds=7):
+    """Device time (ms) of one fn() launch: `reps` launches queued behind
+    a matrix product that keeps the card busy while the host enqueues
+    them, so they run back to back and the host's enqueue time (which
+    exceeds a short kernel's) stays out of it.  CUDA events, median of
+    `rounds`."""
+    for _ in range(3):
+        fn()
+    m = torch.ones(DELAY_N, DELAY_N, device="cuda")
+    busy = torch.empty_like(m)
+    out = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.mm(m, m, out=busy)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        out.append(s.elapsed_time(e) / reps)
+    return statistics.median(out)
+
+
+def _bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over its memory rate and the integer operations
+    the function needs over its INT32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
@@ -143,23 +202,68 @@ def _start_oracle(repo, out, **cfg):
     TopsicleConfig fields `cfg`, so the reference CSVs are written while
     the card checks the kernels."""
     cfg.setdefault("pattern", "CCCTAAA")
-    code = ("from topsicle_tpu.config import TopsicleConfig\n"
-            "from topsicle_tpu.oracle import OracleEngine\n"
+    code = ("from topsicle_tpu_torch.config import TopsicleConfig\n"
+            "from topsicle_tpu_torch.oracle import OracleEngine\n"
             f"OracleEngine(TopsicleConfig(output_dir={out!r}, **{cfg!r})).run()\n")
     with open(out + ".log", "w") as log:
         return subprocess.Popen([sys.executable, "-c", code], cwd=repo,
                                 stdout=log, stderr=subprocess.STDOUT)
 
 
+def _sum_signal_of(torch, root):
+    """`python3 chip_smoke.py --sum-signal-of DIR`: only the times of the
+    sum_signal entry of the checkout at DIR (this one, or another commit's
+    unpacked beside it), so that two bodies of the kernel are read by the
+    same two methods in one call.  Phase 5's batch: B = 128 x L = 19968,
+    CCCTAAA k = 5, lean wire, built here with numpy alone so that nothing
+    but the kernel's wrapper comes from DIR.  Prints one line; no result
+    line."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.abspath(root))
+    from topsicle_tpu_torch.ops import cuda_kernels
+
+    B, L, k = 128, 19968, 5
+    rng = np.random.default_rng(2024)
+    codes = _reads(rng, B, L)
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    bits = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0) & 3
+    packed = bits[:, 0::4] | bits[:, 1::4] << 2 | bits[:, 2::4] << 4 | bits[:, 3::4] << 6
+    doubled = "CCCTAAA" * 2
+    origin = sorted({doubled[i:i + k] for i in range(len(doubled) - k + 1)})
+    kmers = origin + [s.translate(str.maketrans("ACGT", "TGCA")) for s in origin]
+    table = [sum("ACGT".index(c) << (2 * j) for j, c in enumerate(s)) for s in kmers]
+    a = torch.from_numpy(packed.astype(np.uint8)).cuda()
+    b = torch.from_numpy(lens).cuda()
+    tab = torch.tensor(table, dtype=torch.int32, device="cuda")
+    kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+    y = cuda_kernels.sum_signal(a, b, tab, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, cuda_kernels.sum_signal_plain(a, b, tab, **kw)), \
+        f"sum_signal of {root} differs from its plain version"
+    queued, paced, _ = _median_ms(torch, lambda: cuda_kernels.sum_signal(a, b, tab, **kw),
+                                  lambda: None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(f"[time] sum_signal of {root} B=128 L=19968 k=5 lean: {paced:.4f} ms a launch "
+          f"paced by the host, {queued:.4f} ms queued back to back, y bit-identical to its "
+          f"plain version (CUDA events, medians; {smi})")
+    return 0
+
+
 def _median_ms(torch, kern, plain, reps=25):
-    """(kernel, plain) medians of CUDA-event times, in turns: plain,
-    kernel, kernel, plain, after 3 warm-up runs of each."""
+    """(kernel queued back to back, kernel paced by the host, plain)
+    medians of CUDA-event times, in turns: plain, kernel, kernel, plain,
+    after 3 warm-up runs of each."""
     for fn in (plain, kern):
         _cuda_ms(torch, fn, 3)
     tp = _cuda_ms(torch, plain, reps)
+    tq = [_queued_ms(torch, kern, rounds=3)]
     tk = _cuda_ms(torch, kern, reps) + _cuda_ms(torch, kern, reps)
+    tq.append(_queued_ms(torch, kern, rounds=3))
     tp += _cuda_ms(torch, plain, reps)
-    return statistics.median(tk), statistics.median(tp)
+    return statistics.median(tq), statistics.median(tk), statistics.median(tp)
 
 
 def _sharded_phase(torch, dev, batches, ends):
@@ -171,8 +275,8 @@ def _sharded_phase(torch, dev, batches, ends):
     counts double.  Returns the lines to print."""
     import numpy as np
 
-    from topsicle_tpu.io import batch as batching
-    from topsicle_tpu.kmers import telophrase_kmers
+    from topsicle_tpu_torch.io import batch as batching
+    from topsicle_tpu_torch.kmers import telophrase_kmers
     from topsicle_tpu_torch.models import TorchScanModel
     from topsicle_tpu_torch.ops import cuda_kernels
     from topsicle_tpu_torch.parallel import ShardedScanModel
@@ -201,7 +305,7 @@ def _sharded_phase(torch, dev, batches, ends):
         single = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
                                 window_size=100, slide=6)
         sharded = ShardedScanModel(single, [dev, dev])
-        kern = "sum_signal" if single.kernel == "sum" else "greedy_signal"
+        kern = "sum_boundary" if single.fused else "greedy_signal"
         s1 = "plain torch sums" if single.aperiodic else "greedy_counts"
         twice(f"k={phrase} step 1", None if single.aperiodic else "greedy_counts",
               lambda: single.step1_counts(ends, ends_len),
@@ -246,13 +350,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# a child of phase 4: the port's CLI, then its kernel launch counts
+# a child of phase 4: the port's CLI, then its kernel launch counts and its
+# calls of the plain torch changepoint by device type
 _CHILD = ("import json, sys\n"
           "sys.path.insert(0, {repo!r})\n"
           "from topsicle_tpu_torch import cli\n"
-          "from topsicle_tpu_torch.ops import cuda_kernels\n"
+          "from topsicle_tpu_torch.ops import changepoint, cuda_kernels\n"
           "rc = cli.main({argv!r})\n"
           "print('LAUNCHES ' + json.dumps(cuda_kernels.LAUNCHES))\n"
+          "print('PLAIN_CALLS ' + json.dumps(changepoint.PLAIN_CALLS))\n"
           "sys.exit(rc)\n")
 
 
@@ -283,6 +389,10 @@ def _run_processes(repo, argvs, device_line, card=True):
                if x.startswith("LAUNCHES ")]
         assert got and (sum(got[0].values()) > 0 or not card), \
             f"process {i} launched no kernel: {got}"
+        plain = [json.loads(x[len("PLAIN_CALLS "):]) for x in out.splitlines()
+                 if x.startswith("PLAIN_CALLS ")]
+        assert plain and plain[0]["cuda"] == 0, \
+            f"process {i} ran the plain torch changepoint on the card: {plain}"
         launches.append(got[0])
     return wall, launches
 
@@ -364,6 +474,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--sum-signal-of"]:
+        return _sum_signal_of(torch, sys.argv[2])
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     import numpy as np
@@ -425,12 +537,12 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     `mp_inputs` the four-file directory, its bases and the k>15 input."""
     import numpy as np
 
-    from topsicle_tpu.io import batch as batching
-    from topsicle_tpu.io import writer
-    from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
     from topsicle_tpu_torch import cli, ops
+    from topsicle_tpu_torch.io import batch as batching
+    from topsicle_tpu_torch.io import writer
+    from topsicle_tpu_torch.kmers import pack_kmer_table, telophrase_kmers
     from topsicle_tpu_torch.models import TorchScanModel
-    from topsicle_tpu_torch.ops import cuda_kernels
+    from topsicle_tpu_torch.ops import changepoint, cuda_kernels
 
     dev = torch.device("cuda", 0)
     t_oracle = time.perf_counter()
@@ -440,11 +552,18 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     so = cuda_kernels.build_library()
     cuda_kernels.load_library()
     print(f"[build] {so.relative_to(repo)} from "
-          f"{[str(s.relative_to(repo)) for s in cuda_kernels.sources()]} in "
+          f"{[str(s.relative_to(repo)) for s in cuda_kernels.sources()]} (+ "
+          f"{[h.name for h in cuda_kernels.headers()]}) in "
           f"{time.perf_counter() - t0:.2f} s")
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}")
+    t0 = time.perf_counter()
+    from topsicle_tpu_torch.native import native_available
+
+    print(f"[build] native reader (topsicle_tpu_torch/native/tsio.cc, g++ and zlib): "
+          f"{'built and loaded' if native_available() else 'unavailable, the Python reader runs'}"
+          f" in {time.perf_counter() - t0:.2f} s")
 
     # ---- 3. kernels vs plain -------------------------------------------------
     rng = np.random.default_rng(2024)
@@ -466,12 +585,26 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         max_err[kernel] = max(max_err[kernel], err)
         assert torch.equal(got, want), f"{kernel} {label}: kernel differs from plain (max {err})"
 
-    def changepoints(label, y_k, y_p, lens, w, slide):
-        nw = torch.from_numpy(batching.window_counts_for_lengths(lens, w, slide)).to(dev)
-        t_k, h_k = ops.binseg_l2_device(y_k, nw)
-        t_p, h_p = ops.binseg_l2_device(y_p, nw)
-        assert torch.equal(t_k, t_p) and torch.equal(h_k, h_p), f"{label}: (t, has) differ"
-        return int(h_k.sum())
+    def agree_boundary(kernel, label, got, want):
+        """(t, has) of a kernel against its plain version's, exactly."""
+        agree(kernel, label + " t", got[0], want[0])
+        agree(kernel, label + " has", got[1].to(torch.uint8), want[1].to(torch.uint8))
+        assert got[0].dtype == torch.int64 and got[1].dtype == torch.bool, f"{label}: dtypes"
+
+    def ragged_windows(lens, w, slide, W):
+        """The reads' own window counts, with rows of 0 (an empty shard's
+        row), 3 (no valid candidate) and W (every window) among them."""
+        nw = batching.window_counts_for_lengths(lens, w, slide)
+        nw[:3] = np.minimum((0, 3, W), W)[:len(nw)]
+        return nw
+
+    def changepoints(label, y_k, y_p, nw):
+        """binseg_l2 on the kernel's y against the plain changepoint on
+        the plain y; returns the plain (t, has)."""
+        got = cuda_kernels.binseg_l2(y_k, nw)
+        want = ops.binseg_l2_device(y_p, nw)
+        agree_boundary("binseg_l2", label, got, want)
+        return want
 
     def case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
         tab = torch.from_numpy(table).to(dev)
@@ -480,12 +613,19 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         y_k = cuda_kernels.sum_signal(a, b, tab, **kw)
         y_p = cuda_kernels.sum_signal_plain(a, b, tab, **kw)
         agree("sum_signal", label, y_k, y_p)
-        n = changepoints(label, y_k, y_p, lens, w, slide)
+        nw = torch.from_numpy(ragged_windows(lens, w, slide, y_p.shape[1])).to(dev)
+        want = changepoints(label, y_k, y_p, nw)
+        agree_boundary("sum_boundary", label, cuda_kernels.sum_boundary(a, b, tab, nw, **kw),
+                       cuda_kernels.sum_boundary_plain(a, b, tab, nw, **kw))
         if cpu_check:
             y_c = cuda_kernels.sum_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **kw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
-        print(f"[kernel] sum_signal {label}: y_int {tuple(y_k.shape)} bit-identical, "
-              f"(t, has) identical, {n} reads with a boundary")
+            t_c, h_c = cuda_kernels.sum_boundary(a.cpu(), b.cpu(), tab.cpu(), nw.cpu(), **kw)
+            assert torch.equal(want[0].cpu(), t_c) and torch.equal(want[1].cpu(), h_c), \
+                f"{label}: (t, has) on the card differ from the CPU's"
+        print(f"[kernel] sum_signal, sum_boundary, binseg_l2 {label}: y_int "
+              f"{tuple(y_k.shape)} and (t, has) bit-identical to plain torch "
+              f"(n_windows {nw[:4].tolist()}..), {int(want[1].sum())} reads with a boundary")
 
     def greedy_case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
         tab = torch.from_numpy(table).to(dev)
@@ -502,13 +642,14 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         agree("greedy_counts", label, c_k, c_p)
         del c_p
         assert torch.equal(ops.window_signal(c_k), y_k), f"{label}: counts and signal differ"
-        n = changepoints(label, y_k, y_p, lens, w, slide)
+        nw = torch.from_numpy(ragged_windows(lens, w, slide, y_p.shape[1])).to(dev)
+        n = int(changepoints(label, y_k, y_p, nw)[1].sum())
         if cpu_check:
             y_c = cuda_kernels.greedy_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **skw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
         print(f"[kernel] greedy {label}: y_int {tuple(y_k.shape)} and counts "
-              f"{tuple(c_k.shape)} bit-identical (max count {int(c_k.max())}), "
-              f"(t, has) identical, {n} reads with a boundary")
+              f"{tuple(c_k.shape)} bit-identical (max count {int(c_k.max())}), binseg_l2's "
+              f"(t, has) identical to plain torch, {n} reads with a boundary")
 
     def ragged(codes):
         lens = rng.integers(L // 2, L + 1, codes.shape[0]).astype(np.int32)
@@ -538,6 +679,23 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     codes, lens = ragged(_reads(rng, 128, L))
     case("slide=1 w=20 k=7 lean", codes, lens, k7, 7, 20, 1, True)
     greedy_case("slide=1 w=20 k=7 lean", codes, lens, k7, 7, 20, 1, True)
+    # 104 bases hold one window: W = 1 < jump, no candidate at all
+    short = _reads(rng, 8, 104)
+    case("W=1 < jump lean", short, np.full(8, 104, np.int32), demo, 5, 100, 6, True)
+    # binseg_l2 alone: all ties; the two-limb range; A**2 past 64 bits
+    for label, y, nw in (
+            ("constant y [8, 3312]", np.full((8, 3312), 7, np.int32),
+             np.array([3312, 0, 3, 4, 7, 100, 3311, 2000], np.int32)),
+            ("[4, 131080] y < 43", rng.integers(0, 40, (4, 131080)).astype(np.int32)
+             + 3 * (np.arange(131080)[None, :] < 60000),
+             np.array([131080, 131079, 70000, 12], np.int32)),
+            ("y < 2**30 [8, 3000]", rng.integers(0, 1 << 30, (8, 3000)).astype(np.int32),
+             np.array([3000, 2999, 17, 4, 0, 1500, 3, 9], np.int32))):
+        y_d, nw_d = torch.from_numpy(y.astype(np.int32)).to(dev), torch.from_numpy(nw).to(dev)
+        want = changepoints(label, y_d, y_d, nw_d)
+        assert torch.equal(want[0].cpu(), ops.binseg_l2(y_d.cpu(), nw_d.cpu())[0]), label
+        print(f"[kernel] binseg_l2 {label}: (t, has) bit-identical to plain torch, "
+              f"t {want[0].tolist()}, has {want[1].to(torch.uint8).tolist()}")
     codes, lens = ragged(_reads(rng, 128, L, pattern="CCCTAA"))
     greedy_case("CCCTAA k=5 dense 2% invalid", dirty(codes), lens,
                 pack_kmer_table(telophrase_kmers("CCCTAA", 5)), 5, 100, 6, False)
@@ -587,6 +745,7 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         """One CLI path on the card, with the launch counts set to 0 just
         before it and read just after."""
         cuda_kernels.reset_launch_counts()
+        changepoint.PLAIN_CALLS["cuda"] = 0
         t0 = time.perf_counter()
         rc = cli.main(["--inputDir", fq, "--outputDir", os.path.join(work, out), "--pattern",
                        "CCCTAAA", "--slide", "6", "--batchSize", "128", "--device", "cuda",
@@ -597,8 +756,11 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         assert rc == 0, f"{label}: port CLI exited {rc}"
         ran = {n for n, c in launches.items() if c > 0}
         assert ran == set(launched), f"{label}: launched {launches}, expected {launched}"
+        assert changepoint.PLAIN_CALLS["cuda"] == 0, \
+            f"{label}: the plain torch changepoint ran on the card {changepoint.PLAIN_CALLS}"
         log_text = open(os.path.join(work, out, "topsicle_run.log")).read()
         assert f"device: cuda:0 ({name})" in log_text, f"{label}: not run on the card"
+        reader_line = [ln for ln in log_text.splitlines() if "reader: " in ln][0]
         got = open(os.path.join(work, out, "telolengths_all.csv"), "rb").read()
         want = open(os.path.join(work, oracle, "telolengths_all.csv"), "rb").read()
         assert got == want, f"{label}: telolengths_all.csv differs from the oracle's"
@@ -607,14 +769,18 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         rows = got.count(b"\n") - 1
         assert rows > 100, f"{label}: only {rows} rows"
         print(f"[e2e] {label} on {name}: {rows} rows, CSV and subset byte-identical to the "
-              f"oracle; kernel launches {launches}; wall {wall:.2f} s = "
+              f"oracle; kernel launches {launches}, plain changepoint on the card 0 times; "
+              f"{reader_line.split('] ')[-1]}; wall {wall:.2f} s = "
               f"{4096 / wall:.0f} reads/s, {bp / 1e6 / wall:.2f} Mbp/s")
         e2e[label] = (wall, launches)
 
-    drive("k=5 auto", "port5", "oracle5", ["sum_signal"])
-    drive("--telophrase 7", "port7", "oracle7", ["greedy_signal", "greedy_counts"],
-          "--telophrase", "7")
-    drive("--kernel greedy k=5", "port5g", "oracle5", ["greedy_signal"], "--kernel", "greedy")
+    drive("k=5 auto", "port5", "oracle5", ["sum_boundary"])
+    drive("--telophrase 7", "port7", "oracle7",
+          ["greedy_signal", "greedy_counts", "binseg_l2"], "--telophrase", "7")
+    drive("--kernel greedy k=5", "port5g", "oracle5", ["greedy_signal", "binseg_l2"],
+          "--kernel", "greedy")
+    drive("--kernel sum k=5", "port5s", "oracle5", ["sum_signal", "binseg_l2"],
+          "--kernel", "sum")
     files, files_bp, k16 = mp_inputs
     device_line = f"device: cuda:0 ({name})"
     mp = _multiprocess_phase(repo, work, files, "cuda", device_line)
@@ -629,31 +795,102 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     codes, lens = ragged(_reads(rng, B, L))
     a, b = wire(codes, lens, True)
     nw = batching.window_counts_for_lengths(lens, 100, 6)
-    times = {}
-    for kname, kern_fn, plain_fn, table, k in (
-            ("sum_signal", cuda_kernels.sum_signal, cuda_kernels.sum_signal_plain, demo, 5),
-            ("greedy_signal", cuda_kernels.greedy_signal, cuda_kernels.greedy_signal_plain,
-             k7, 7)):
-        tab = torch.from_numpy(table).to(dev)
-        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
-        times[kname] = _median_ms(torch, lambda: kern_fn(a, b, tab, **kw),
-                                  lambda: plain_fn(a, b, tab, **kw))
-        print(f"[time] {kname} B=128 L=19968 k={k} lean: kernel {times[kname][0]:.4f} ms, "
-              f"plain torch {times[kname][1]:.4f} ms (CUDA events, median of 50 each; {smi})")
-    tab = torch.from_numpy(k7).to(dev)
+    nw_dev = torch.from_numpy(nw).to(dev)
+    W = ops.num_windows(L, 100, 6)
+    n_cand = W // 5
+    times, bounds = {}, {}
+
+    def timed(kname, label, kern, plain, reps=25):
+        times[kname] = _median_ms(torch, kern, plain, reps)
+        q, paced, pl = times[kname]
+        bd, by = bounds[kname]
+        print(f"[time] {kname} {label}: kernel {paced:.4f} ms a launch paced by the host, "
+              f"{q:.4f} ms queued back to back, plain torch {pl:.4f} ms, bound {bd:.5f} ms "
+              f"by {by} ({bd / q:.1%} of the queued time), no library call computes it "
+              f"(CUDA events, medians; {smi})")
+
+    # Bounds, from this run's inputs.  Bytes: each input once, each output
+    # once.  Operations: the 32-bit integer operations the function needs,
+    # whatever the kernel's body spends.  A position whose k-mer lies
+    # inside the read's length: the rolling code (shift, insert, mask), its
+    # validity and the table lookup, 5.  The sum signal adds 3 a position
+    # (popcount, add into and OR into its group of `slide` positions: every
+    # window starts on a group), 3 a group (a prefix add and two segment
+    # ORs) and 4 a window (difference, OR, popcount, add).  The changepoint:
+    # 2 a window (the int64 prefix) and 40 a candidate (A and D in int64
+    # and the exact 192-bit compare of A*A*D, in 32-bit operations).  The
+    # greedy count of an aperiodic entry is its match count: 2 a position
+    # (its bit, a prefix add) and 3 a window (difference, floor, add); only
+    # a periodic entry needs the walk, 5 a step (match bit, compare with
+    # the next free position, count, advance, loop) over the J offsets of
+    # every window that starts inside the read.
+    from topsicle_tpu_torch.kmers import aperiodic_mask
+
+    def positions_inside(lengths, k, n_positions):
+        return np.clip(lengths.astype(np.int64) - k + 1, 0, n_positions)
+
+    def greedy_ops(lengths, kmers, k, J, W, slide):
+        """Operations the greedy counts of `kmers` need on reads of these
+        lengths: W windows of J offsets, `slide` apart."""
+        inside = positions_inside(lengths, k, (W - 1) * slide + J)
+        started = np.minimum(-(-inside // slide), W)
+        ka = sum(aperiodic_mask(kmers))
+        kp = len(kmers) - ka
+        return int(((5 + 2 * ka) * inside).sum() + 3 * ka * len(lengths) * W
+                   + (5 * J + 2) * kp * started.sum())
+
+    wire_bytes = a.numel() + b.numel() * 4
+    inside = int(positions_inside(lens, 5, (W - 1) * 6 + 95).sum())
+    sum_ops = 8 * inside + 3 * -(-inside // 6) + 4 * B * W
+    binseg_ops = B * (2 * W + 40 * n_cand)
+    kmers7 = telophrase_kmers("CCCTAAA", 7)
+    bounds["sum_boundary"] = _bound(wire_bytes + B * 4 + B * 9, sum_ops + binseg_ops)
+    bounds["sum_signal"] = _bound(wire_bytes + B * W * 4, sum_ops)
+    bounds["binseg_l2"] = _bound(B * W * 4 + B * 4 + B * 9, binseg_ops)
+    bounds["greedy_signal"] = _bound(wire_bytes + B * W * 4,
+                                     greedy_ops(lens, kmers7, 7, 93, W, 6))
+    tab5, tab7 = torch.from_numpy(demo).to(dev), torch.from_numpy(k7).to(dev)
+    kw5 = dict(k=5, window_size=100, slide=6, L=L, lean=True)
+    kw7 = dict(kw5, k=7)
+    timed("sum_boundary", "B=128 L=19968 k=5 lean",
+          lambda: cuda_kernels.sum_boundary(a, b, tab5, nw_dev, **kw5),
+          lambda: cuda_kernels.sum_boundary_plain(a, b, tab5, nw_dev, **kw5), reps=10)
+    timed("sum_signal", "B=128 L=19968 k=5 lean",
+          lambda: cuda_kernels.sum_signal(a, b, tab5, **kw5),
+          lambda: cuda_kernels.sum_signal_plain(a, b, tab5, **kw5))
+    y = cuda_kernels.sum_signal(a, b, tab5, **kw5)
+    timed("binseg_l2", "y [128, 3312]", lambda: cuda_kernels.binseg_l2(y, nw_dev),
+          lambda: ops.binseg_l2_device(y, nw_dev), reps=10)
+    timed("greedy_signal", "B=128 L=19968 k=7 lean",
+          lambda: cuda_kernels.greedy_signal(a, b, tab7, **kw7),
+          lambda: cuda_kernels.greedy_signal_plain(a, b, tab7, **kw7))
     ea, eb = wire(ends, ends_len, True)
     ckw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=True)
-    times["greedy_counts"] = _median_ms(
-        torch, lambda: cuda_kernels.greedy_counts(ea, eb, tab, **ckw),
-        lambda: cuda_kernels.greedy_counts_plain(ea, eb, tab, **ckw), reps=10)
-    print(f"[time] greedy_counts step 1 [256, 1000] k=7 lean: kernel "
-          f"{times['greedy_counts'][0]:.4f} ms, plain torch {times['greedy_counts'][1]:.4f} ms "
-          f"(CUDA events, median of 20 each; {smi})")
-    ckw = dict(k=7, J=93, W=ops.num_windows(L, 100, 6), slide=6, L=L, lean=True)
-    rc_ms = statistics.median(_cuda_ms(torch, lambda: cuda_kernels.greedy_counts(
-        a, b, tab, **ckw), 20))
+    bounds["greedy_counts"] = _bound(ea.numel() + eb.numel() * 4 + 256 * len(k7) * 4,
+                                     greedy_ops(ends_len, kmers7, 7, 994, 1, 1))
+    timed("greedy_counts", "step 1 [256, 1000] k=7 lean",
+          lambda: cuda_kernels.greedy_counts(ea, eb, tab7, **ckw),
+          lambda: cuda_kernels.greedy_counts_plain(ea, eb, tab7, **ckw), reps=10)
+    da, db = wire(dirty(codes.copy()), lens, False)
+    kwd = dict(kw5, lean=False)
+    print(f"[time] dense wire (2% invalid) B=128 L=19968 k=5: sum_boundary "
+          f"{_queued_ms(torch, lambda: cuda_kernels.sum_boundary(da, db, tab5, nw_dev, **kwd)):.4f}"
+          f" ms, sum_signal "
+          f"{_queued_ms(torch, lambda: cuda_kernels.sum_signal(da, db, tab5, **kwd)):.4f} ms "
+          f"queued back to back (CUDA events, medians; {smi})")
+    codes8, lens8 = ragged(_reads(rng, 1024, L))
+    a8, b8 = wire(codes8, lens8, True)
+    nw8 = torch.from_numpy(batching.window_counts_for_lengths(lens8, 100, 6)).to(dev)
+    print(f"[time] B=1024 L=19968 k=5 lean: sum_boundary "
+          f"{_queued_ms(torch, lambda: cuda_kernels.sum_boundary(a8, b8, tab5, nw8, **kw5)):.4f}"
+          f" ms, sum_signal "
+          f"{_queued_ms(torch, lambda: cuda_kernels.sum_signal(a8, b8, tab5, **kw5)):.4f} ms "
+          f"queued back to back (CUDA events, medians; {smi})")
+    del codes8, a8, b8
+    ckw = dict(k=7, J=93, W=W, slide=6, L=L, lean=True)
+    rc_ms = _queued_ms(torch, lambda: cuda_kernels.greedy_counts(a, b, tab7, **ckw))
     print(f"[time] greedy_counts rawcounts B=128 L=19968 k=7 lean: kernel {rc_ms:.4f} ms "
-          f"(CUDA events, median of 20; {smi})")
+          f"queued back to back (CUDA events, median; {smi})")
     for phrase in (5, 7):
         model = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
                                window_size=100, slide=6)
@@ -665,7 +902,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
             model.step2_boundary(codes, nw, lens)
             host.append((time.perf_counter() - t0) * 1e3)
         dev_ms = _cuda_ms(torch, lambda: model.step2_boundary(codes, nw, lens), 20)
-        print(f"[time] step-2 launch path k={phrase} ({model.kernel} kernel) B=128 (pack, "
+        route = "sum_boundary" if model.fused else f"{model.kernel}_signal + binseg_l2"
+        print(f"[time] step-2 launch path k={phrase} ({route}) B=128 (pack, "
               f"H2D, kernel, changepoint, D2H): {statistics.median(host):.3f} ms host clock, "
               f"{statistics.median(dev_ms):.3f} ms CUDA events, median of 20 ({smi})")
     from topsicle_tpu_torch.parallel import ShardedScanModel
@@ -689,13 +927,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         t0 = time.perf_counter()
         model.pack_scan_batch(codes, lens)
         pack.append((time.perf_counter() - t0) * 1e3)
-    y = cuda_kernels.sum_signal(a, b, torch.from_numpy(demo).to(dev), k=5, window_size=100,
-                                slide=6, L=L, lean=True)
-    nw_dev = torch.from_numpy(nw).to(dev)
-    cp_ms = _cuda_ms(torch, lambda: ops.binseg_l2_device(y, nw_dev), 20)
     print(f"[time] of which: host pack (clean check + 2-bit pack) "
-          f"{statistics.median(pack):.3f} ms host clock; changepoint "
-          f"{statistics.median(cp_ms):.3f} ms CUDA events ({smi})")
+          f"{statistics.median(pack):.3f} ms host clock ({smi})")
     for label, (wall, _) in e2e.items():
         print(f"[time] end to end {label}: {wall:.2f} s wall for 4096 reads = "
               f"{4096 / wall:.1f} reads/s, {bp / 1e6 / wall:.3f} Mbp/s ({smi})")
@@ -708,16 +941,21 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     shutil.rmtree(work, ignore_errors=True)
 
     src = "topsicle_tpu_torch/csrc/"
-    rec = [("sum_signal", "sum_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:224",
-            "k=5 auto"),
-           ("greedy_signal", "greedy_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:148",
-            "--telophrase 7"),
-           ("greedy_counts", "greedy_signal.cu", "topsicle_tpu/ops/pallas_kernels.py:148",
-            "--telophrase 7")]
+    sum_kernel = "topsicle_tpu/ops/pallas_kernels.py:224"
+    greedy_kernel = "topsicle_tpu/ops/pallas_kernels.py:148"
+    rec = [("sum_boundary", "sum_signal.cu", sum_kernel, "k=5 auto"),
+           ("sum_signal", "sum_signal.cu", sum_kernel, "--kernel sum k=5"),
+           ("binseg_l2", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124", "--telophrase 7"),
+           ("greedy_signal", "greedy_signal.cu", greedy_kernel, "--telophrase 7"),
+           ("greedy_counts", "greedy_signal.cu", greedy_kernel, "--telophrase 7")]
+    for n, _, _, run in rec:
+        assert e2e[run][1][n] > 0, f"{n} was not launched on the {run} path"
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda", "source": src + f, "replaces": r,
         "launches": e2e[run][1][n], "max_abs_err": max_err[n],
-        "ms": times[n][0], "plain_ms": times[n][1]} for n, f, r, run in rec]}))
+        "ms": times[n][1], "plain_ms": times[n][2], "bound_ms": bounds[n][0],
+        "bound_by": bounds[n][1], "library_ms": None,
+        "queued_ms": times[n][0]} for n, f, r, run in rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

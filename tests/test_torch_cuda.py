@@ -2,8 +2,8 @@
 versions, and the model and engine on the card against the same code on
 the CPU.  Every test needs a card and skips without one.
 
-This file imports no jax (the machine with the card has none), so it
-runs there without the suite's conftest:
+This file imports nothing of jax or of the JAX package (the port needs
+neither), so it runs on the card's machine without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -15,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from topsicle_tpu.config import TopsicleConfig
-from topsicle_tpu.io import batch as batching
-from topsicle_tpu.kmers import pack_kmer_table, telophrase_kmers
+from topsicle_tpu_torch import ops
+from topsicle_tpu_torch.config import TopsicleConfig
+from topsicle_tpu_torch.io import batch as batching
+from topsicle_tpu_torch.kmers import pack_kmer_table, telophrase_kmers
 from topsicle_tpu_torch.models import TorchScanModel
 from topsicle_tpu_torch.models.telomere import HostResult
 from topsicle_tpu_torch.ops import cuda_kernels
@@ -64,6 +65,117 @@ def test_kernel_matches_plain(dev, k, w, slide, lean):
     assert cuda_kernels.LAUNCHES["sum_signal"] == n0 + 1
     assert torch.equal(y, cuda_kernels.sum_signal_plain(a, b, table, **kw))
     assert torch.equal(y.cpu(), cuda_kernels.sum_signal(a.cpu(), b.cpu(), table.cpu(), **kw))
+
+
+@pytest.mark.parametrize("B,L,k,w,slide,lean", [
+    (64, 4096, 5, 100, 6, True), (64, 4096, 5, 100, 6, False), (128, 19968, 5, 100, 6, True),
+    (16, 4096, 7, 20, 1, True), (16, 4096, 13, 100, 6, False), (5, 1003, 5, 100, 6, False),
+    (4, 104, 5, 100, 6, True)])
+def test_sum_boundary_matches_plain(dev, B, L, k, w, slide, lean):
+    """The fused kernel's (t, has) against plain signal + plain
+    changepoint, with window counts of 0, 3 and W among the reads' own;
+    L = 1003 gives rows that are not 16-byte aligned (byte loads)."""
+    codes, lens = _batch(B + k, B, L, lean)
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAACCCTAAA"[:max(7, k)],
+                                                               k))).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    kw = dict(k=k, window_size=w, slide=slide, L=a.shape[1] * 4, lean=lean)
+    W = ops.num_windows(a.shape[1] * 4, w, slide)
+    nw = batching.window_counts_for_lengths(lens, w, slide)
+    nw[:3] = np.minimum((0, 3, W), W)
+    nw = torch.from_numpy(nw).to(dev)
+    n0 = dict(cuda_kernels.LAUNCHES)
+    t, has = cuda_kernels.sum_boundary(a, b, table, nw, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["sum_boundary"] == n0["sum_boundary"] + 1
+    tp, hp = cuda_kernels.sum_boundary_plain(a, b, table, nw, **kw)
+    assert t.dtype == torch.int64 and has.dtype == torch.bool
+    assert torch.equal(t, tp) and torch.equal(has, hp)
+    tc, hc = cuda_kernels.sum_boundary(a.cpu(), b.cpu(), table.cpu(), nw.cpu(), **kw)
+    assert torch.equal(t.cpu(), tc) and torch.equal(has.cpu(), hc)
+
+
+@pytest.mark.parametrize("case", ["random", "constant", "two-limb", "big-y", "short"])
+def test_binseg_l2_matches_plain(dev, case):
+    rng = np.random.default_rng(5)
+    y, n = {
+        "random": lambda: (rng.integers(1, 120, (64, 3312)), rng.integers(0, 3313, 64)),
+        "constant": lambda: (np.full((8, 3312), 7), np.array([3312, 0, 3, 4, 7, 100, 3311, 9])),
+        "two-limb": lambda: (rng.integers(0, 40, (4, 131080))
+                             + 3 * (np.arange(131080)[None, :] < 60000),
+                             np.array([131080, 131079, 70000, 12])),
+        "big-y": lambda: (rng.integers(0, 1 << 30, (8, 3000)),
+                          np.array([3000, 2999, 17, 4, 0, 1500, 3, 9])),
+        "short": lambda: (np.ones((3, 4)), np.array([4, 2, 0])),
+    }[case]()
+    y = torch.from_numpy(y.astype(np.int32)).to(dev)
+    n = torch.from_numpy(n.astype(np.int32)).to(dev)
+    n0 = cuda_kernels.LAUNCHES["binseg_l2"]
+    t, has = cuda_kernels.binseg_l2(y, n)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES["binseg_l2"] == n0 + 1
+    tp, hp = ops.binseg_l2_device(y, n)
+    assert torch.equal(t, tp) and torch.equal(has, hp)
+    if case == "constant":
+        assert t.tolist() == [5] * 8 and has.tolist() == [True, False, False, False, True,
+                                                          True, True, True]
+
+
+def test_boundary_wrappers_reject_bad_inputs(dev):
+    y = torch.ones((2, 50), dtype=torch.int32, device=dev)
+    n = torch.tensor([50, 20], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_kernels.binseg_l2(y.to(torch.int64), n)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_kernels.binseg_l2(y, n.to(torch.int64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.binseg_l2(y.t().contiguous().t(), n)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda_kernels.binseg_l2(y, n[:1])
+    with pytest.raises(ValueError, match="jump >= 1"):
+        cuda_kernels.binseg_l2(y, n, jump=0)
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_kernels.binseg_l2(y, n.cpu())
+    t, has = cuda_kernels.binseg_l2(y[:0], n[:0])
+    assert t.shape == (0,) and has.shape == (0,)
+    codes, lens = _batch(1, 4, 1024, True)
+    a, b = _wire(codes, lens, True, dev)
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", 5))).to(dev)
+    kw = dict(k=5, window_size=100, slide=6, L=1024, lean=True)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda_kernels.sum_boundary(a, b, table, n, **kw)
+    with pytest.raises(ValueError, match="min_size >= 1"):
+        cuda_kernels.sum_boundary(a, b, table, torch.zeros(4, dtype=torch.int32, device=dev),
+                                  min_size=0, **kw)
+    # a read too long for a block's shared memory is refused, not truncated
+    long = torch.zeros((1, 300_000), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_kernels.sum_boundary(long, torch.tensor([1_200_000], dtype=torch.int32,
+                                                     device=dev), table,
+                                  torch.zeros(1, dtype=torch.int32, device=dev), k=5,
+                                  window_size=100, slide=6, L=1_200_000, lean=True)
+
+
+@pytest.mark.parametrize("kernel,launched", [
+    (None, ["sum_boundary"]), ("sum", ["sum_signal", "binseg_l2"]),
+    ("greedy", ["greedy_signal", "binseg_l2"])])
+def test_model_routes_on_card(dev, kernel, launched):
+    """Each route launches its kernels and no other, never the plain
+    changepoint, and gives the CPU's (t, has)."""
+    from topsicle_tpu_torch.ops import changepoint
+
+    kmers = telophrase_kmers("CCCTAAA", 5)
+    model = TorchScanModel(kmers, device=dev, window_size=100, slide=6, kernel=kernel)
+    codes, lens = _batch(31, 32, 8192, True)
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    cuda_kernels.reset_launch_counts()
+    plain0 = changepoint.PLAIN_CALLS["cuda"]
+    t, has = model.step2_boundary(codes, nw, lens)
+    assert sorted(n for n, c in cuda_kernels.LAUNCHES.items() if c) == sorted(launched)
+    assert changepoint.PLAIN_CALLS["cuda"] == plain0
+    tc, hc = TorchScanModel(kmers, device="cpu", window_size=100, slide=6,
+                            kernel=kernel).step2_boundary(codes, nw, lens)
+    assert np.array_equal(t, tc) and np.array_equal(has, hc) and has.any()
 
 
 # K = 40: two mixed tables, a table whose entries repeat the first two
@@ -245,7 +357,7 @@ def test_two_shards_on_one_card_match_single(dev, phrase):
     sharded = ShardedScanModel(single, [dev, dev])
     codes, lens = _batch(phrase, 64, 19968, False)
     nw = batching.window_counts_for_lengths(lens, 100, 6)
-    name = "sum_signal" if phrase == 5 else "greedy_signal"
+    name = "sum_boundary" if phrase == 5 else "greedy_signal"
     n0 = cuda_kernels.LAUNCHES[name]
     got = sharded.step2_boundary(codes, nw, lens)
     assert cuda_kernels.LAUNCHES[name] == n0 + 2

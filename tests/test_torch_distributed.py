@@ -1,12 +1,12 @@
 """Files mode over processes and the k > 15 host fallback in the port.
 
-Files mode: the part files, done markers and merge are the JAX package's
-own code (loaded without jax), so two processes, simulated in one or run
+Files mode: the part files, done markers and merge are the port's copy of
+the JAX package's, so two processes, simulated in one or run
 as concurrent CLIs with or without --coordinator, give a CSV and subset
 files byte-identical to a single-process run.  k > 15: the port's
-OracleScanModel is the JAX package's, and a sweep with such a phrase
+OracleScanModel equals the JAX package's, and a sweep with such a phrase
 equals JaxEngine's byte for byte.  Every child process runs with jax
-blocked and a time limit."""
+and topsicle_tpu blocked and a time limit."""
 
 import os
 import random
@@ -33,15 +33,14 @@ from topsicle_tpu_torch.pipeline import TorchEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# A child process: the port's CLI with every jax import failing; it must
-# leave no jax-backed module of topsicle_tpu loaded.
+# A child process: the port's CLI with every import of jax and of the JAX
+# package failing; it must load nothing of either.
 _CHILD = (
-    "import sys; sys.modules['jax'] = None\n"
+    "import sys; sys.modules['jax'] = sys.modules['topsicle_tpu'] = None\n"
     "from topsicle_tpu_torch.cli import main\n"
     "rc = main({argv!r})\n"
     "assert not [m for m in sys.modules if m.startswith('jax') and m != 'jax']\n"
-    "assert not [m for m in sys.modules if m.startswith(('topsicle_tpu.ops',"
-    " 'topsicle_tpu.models', 'topsicle_tpu.parallel'))]\n"
+    "assert not [m for m in sys.modules if m.startswith('topsicle_tpu.')]\n"
     "sys.exit(rc)\n")
 
 
@@ -155,12 +154,13 @@ def test_process_identity():
 
 
 def test_oracle_model_is_jaxs():
-    """The port's OracleScanModel is the JAX package's code, loaded without
-    jax: the same counts, changepoints and rawcounts at k = 16."""
+    """The port's OracleScanModel is its own module and computes what the
+    JAX package's does: the same counts, changepoints and rawcounts at
+    k = 16."""
     kmers = patterns_to_search("CCCTAAACC", 16)
     port = OracleScanModel(kmers, window_size=100, slide=9)
     ref = JaxOracleScanModel(kmers, window_size=100, slide=9)
-    assert OracleScanModel.__module__ == "topsicle_tpu_torch._host.oracle_model"
+    assert OracleScanModel.__module__ == "topsicle_tpu_torch.models.oracle_model"
     rng = np.random.default_rng(16)
     pat = np.resize(np.array(["ACGT".index(c) for c in "CCCTAAACC"], np.uint8), 1200)
     codes = rng.integers(0, 4, (3, 1200)).astype(np.uint8)

@@ -162,8 +162,8 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
                        cuda_kernels.greedy_counts_plain(*args, **ckw))
     assert cuda_kernels.LAUNCHES == before
     cuda_kernels.reset_launch_counts()
-    assert cuda_kernels.LAUNCHES == {"sum_signal": 0, "greedy_signal": 0,
-                                     "greedy_counts": 0}
+    assert cuda_kernels.LAUNCHES == {"sum_boundary": 0, "sum_signal": 0, "binseg_l2": 0,
+                                     "greedy_signal": 0, "greedy_counts": 0}
 
 
 def test_sum_signal_envelope_raises():
@@ -218,6 +218,21 @@ def test_library_path_covers_every_source(tmp_path, monkeypatch):
     assert [p.name for p in cuda_kernels.sources()] == ["a.cu", "b.cu"]
 
 
+def test_library_path_covers_the_headers(tmp_path, monkeypatch):
+    """A csrc/*.cuh is compiled into the sources that include it, so its
+    edit names a new library too; it is not itself a compile unit."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// h\n")
+    monkeypatch.setattr(cuda_kernels, "CSRC", csrc)
+    first = cuda_kernels.library_path()
+    (csrc / "h.cuh").write_text("// h, edited\n")
+    assert cuda_kernels.library_path() != first
+    assert [p.name for p in cuda_kernels.sources()] == ["a.cu"]
+    assert [p.name for p in cuda_kernels.headers()] == ["h.cuh"]
+
+
 def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     """One nvcc -c per source, then one link into the library; the
     compilers' output lands in the log beside it, the objects do not
@@ -236,12 +251,13 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     compiles = [ln for ln in lines if " -c " in ln]
     assert sorted(ln.split()[-1] for ln in compiles) == \
         sorted(str(p) for p in cuda_kernels.sources())
-    assert len(cuda_kernels.sources()) == 2 and len(lines) == 3
-    assert "-shared" in lines[-1] and lines[-1].count(".o") == 2
-    assert so.with_suffix(".log").read_text().count("ptxas info") == 3
+    assert len(cuda_kernels.sources()) == 3 and len(lines) == 4
+    assert "-shared" in lines[-1]
+    assert sum(tok.endswith(".o") for tok in lines[-1].split()) == 3
+    assert so.with_suffix(".log").read_text().count("ptxas info") == 4
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [so.with_suffix(".log").name,
                                                                        so.name]
-    assert cuda_kernels.build_library() == so and len(calls.read_text().splitlines()) == 3
+    assert cuda_kernels.build_library() == so and len(calls.read_text().splitlines()) == 4
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):

@@ -81,13 +81,14 @@ def test_control_word_one_process():
     assert any_process_has_data(True) and not any_process_has_data(False)
 
 
-# A child process of the gloo test, jax blocked; _batches is pasted in.
+# A child process of the gloo test, jax and the JAX package blocked;
+# _batches is pasted in.
 _GATHER = (
-    "import json, sys; sys.modules['jax'] = None\n"
+    "import json, sys; sys.modules['jax'] = sys.modules['topsicle_tpu'] = None\n"
     "import numpy as np\n"
     "{batches}\n"
-    "from topsicle_tpu.io import batch as batching\n"
-    "from topsicle_tpu.kmers import telophrase_kmers\n"
+    "from topsicle_tpu_torch.io import batch as batching\n"
+    "from topsicle_tpu_torch.kmers import telophrase_kmers\n"
     "from topsicle_tpu_torch.models import TorchScanModel\n"
     "from topsicle_tpu_torch.parallel import mesh, multihost\n"
     "pid = {pid}\n"

@@ -148,15 +148,14 @@ def test_torch_engine_read_check(synthetic, tmp_path):
 
 
 def _cli_with_jax_blocked(args, data, out):
-    """Run the port's CLI in a subprocess where every jax import fails;
-    assert it ran and left no jax-backed module loaded."""
-    code = ("import sys; sys.modules['jax'] = None\n"
+    """Run the port's CLI in a subprocess where every import of jax and
+    of the JAX package fails; assert it ran and loaded nothing of either."""
+    code = ("import sys; sys.modules['jax'] = sys.modules['topsicle_tpu'] = None\n"
             "from topsicle_tpu_torch.cli import main\n"
             f"rc = main(['--inputDir', {str(data)!r}, '--outputDir', {str(out)!r},"
             f" '--batchSize', '8', '--device', 'cpu', *{args!r}])\n"
             "assert not [m for m in sys.modules if m.startswith('jax') and m != 'jax']\n"
-            "assert not [m for m in sys.modules if m.startswith(('topsicle_tpu.ops',"
-            " 'topsicle_tpu.models', 'topsicle_tpu.parallel'))]\n"
+            "assert not [m for m in sys.modules if m.startswith('topsicle_tpu.')]\n"
             "sys.exit(rc)\n")
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -25,29 +25,132 @@ or two processes in global mode, each on its own card:
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
-from topsicle_tpu.cli import build_parser as build_reference_parser
-from topsicle_tpu.cli import config_from_args
-from topsicle_tpu.io.writer import RunLog
+from topsicle_tpu_torch.config import TopsicleConfig
+from topsicle_tpu_torch.io.writer import RunLog
 from topsicle_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
+from topsicle_tpu_torch.pipeline import make_engine
 
 
-def build_parser():
-    p = build_reference_parser()
-    p.prog = "topsicle-torch"
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="topsicle-torch",
+        description="Topsicle on PyTorch/CUDA - Telomere length estimation from long reads",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    p.add_argument("--inputDir", "-i", type=str, metavar="FILE/FOLDER", required=True,
+                   help="FASTA/FASTQ input: one file or a directory tree (gzip OK)")
+    p.add_argument("--outputDir", "-o", type=str, metavar="FOLDER", required=True,
+                   help="Directory where the CSV, log, subset files, and plots go")
+    p.add_argument("--pattern", metavar="CHAR", type=str, required=True,
+                   help="Telomere repeat unit, written 5'->3' (A. thaliana: CCCTAAA; human: CCCTAA)")
+    p.add_argument("--minSeqLength", metavar="INT", type=int, default=9000,
+                   help="Skip reads whose length is not strictly greater than this")
+    p.add_argument("--rawcountpattern", action="store_true",
+                   help="Also emit per-window, per-k-mer count tables (rawcount_{k}_{n}.csv)")
+    p.add_argument("--telophrase", nargs="+", metavar="INT", type=int,
+                   help="k-mer size(s) to scan with; omitted => len(pattern) - 2")
+    p.add_argument("--cutoff", nargs="+", metavar="FLOAT", type=float, default=0.7,
+                   help="TRC threshold(s); the minimum filters reads, the first anchors the quadratic fit")
+    p.add_argument("--windowSize", metavar="INT", type=int, default=100,
+                   help="Width (bp) of the step-2 scan window")
+    p.add_argument("--slide", metavar="INT", type=int,
+                   help="Distance between window starts; omitted => len(pattern)")
+    p.add_argument("--trimfirst", metavar="INT", type=int, default=100,
+                   help="Bases to drop from the telomeric end before the window scan")
+    p.add_argument("--maxlengthtelo", metavar="INT", type=int, default=20000,
+                   help="Cap (bp) on how far into each read the boundary search goes")
+    p.add_argument("--plot", action="store_true",
+                   help="Save a window-signal + changepoint figure for every passing read")
+    p.add_argument("--rangecp", metavar="INT", type=int,
+                   help="x-axis limit of the per-read changepoint figure (defaults to maxlengthtelo)")
+    p.add_argument("--read_check", metavar="STR", type=str,
+                   help="Restrict step 2 to a single read ID (debugging aid)")
+    p.add_argument("--override", "-ov", action="store_true",
+                   help="Replace an existing non-empty telolengths_all.csv; subset files are reused")
+    p.add_argument("--threads", "-t", metavar="INT", type=int, default=None,
+                   help="Host parse/encode workers: up to N input files are read "
+                        "concurrently (the current one plus N-1 ahead of the device). "
+                        "Default: all available cores; 1 = fully serial")
+    # --- device runtime (no reference analog) ---
+    p.add_argument("--engine", choices=["jax", "oracle"], default="jax",
+                   help="Compute engine: 'jax' (the reference CLI's name for the device "
+                        "engine: here the torch engine on --device) or 'oracle' "
+                        "(pure-CPU reference semantics)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Torch device: 'cuda' runs the hand-written kernels on "
                         "the card (and fails without one); 'cpu' runs their "
                         "plain torch versions")
-    p._option_string_actions["--kernel"].help = (
-        "Step-2 window-signal kernel: 'auto' (default) and 'sum' take the "
-        "CUDA sum kernel when every k-mer of the table is aperiodic and it "
-        "has at most 31 entries, else the CUDA greedy kernel ('sum' warns "
-        "then); 'greedy' always takes the greedy kernel, exact for every "
-        "table; 'xla' is refused (the port has no XLA path)")
+    p.add_argument("--batchSize", metavar="INT", type=int, default=128,
+                   help="Reads per device batch")
+    p.add_argument("--resume", action="store_true",
+                   help="Continue an interrupted run: keep completed (file, k) units from the existing CSV/manifest and recompute only the rest")
+    p.add_argument("--traceDir", metavar="FOLDER", type=str, default=None,
+                   help="Write a torch.profiler trace of the run to this directory")
+    p.add_argument("--precompile", action="store_true",
+                   help="Build and load the CUDA kernels' library and check "
+                        "every telophrase's table, then exit without reading "
+                        "input (later jobs on this checkout find the library "
+                        "built)")
+    p.add_argument("--scanLengthMode", choices=["static", "bucket"], default="static",
+                   help="Step-2 padding: 'static' = one scan length for the whole "
+                        "run; 'bucket' = pad per batch (less compute on "
+                        "short-read data)")
+    p.add_argument("--kernel", choices=["auto", "xla", "greedy", "sum"],
+                   default="auto",
+                   help="Step-2 window-signal kernel: 'auto' (default) and 'sum' take the "
+                        "CUDA sum kernel when every k-mer of the table is aperiodic and it "
+                        "has at most 31 entries, else the CUDA greedy kernel ('sum' warns "
+                        "then); 'auto' runs the sum kernel fused with the changepoint in "
+                        "one launch, 'sum' runs the two one after the other (the same "
+                        "bytes out); 'greedy' always takes the greedy kernel, exact for "
+                        "every table; 'xla' is refused (the port has no XLA path)")
+    # --- multi-host (reference analog: manual SLURM job splitting,
+    # README.md:261-270 — here it is automatic and deterministic) ---
+    p.add_argument("--coordinator", metavar="HOST:PORT", type=str, default=None,
+                   help="torch.distributed (gloo) rendezvous address for multi-process runs")
+    p.add_argument("--processId", metavar="INT", type=int, default=None,
+                   help="This process's index (with --processCount; inferred from the process group otherwise)")
+    p.add_argument("--processCount", metavar="INT", type=int, default=None,
+                   help="Total processes sharing the run (input files are sharded round-robin; process 0 merges)")
+    p.add_argument("--shardMode", choices=["files", "global"], default="files",
+                   help="Multi-host layout: 'files' = each process computes its own files; "
+                        "'global' = lockstep global batches, one shard per process (needs --coordinator)")
     return p
+
+
+def config_from_args(args: argparse.Namespace) -> TopsicleConfig:
+    return TopsicleConfig(
+        input_dir=args.inputDir,
+        output_dir=args.outputDir,
+        pattern=args.pattern,
+        min_seq_length=args.minSeqLength,
+        rawcountpattern=args.rawcountpattern,
+        telophrase=args.telophrase,
+        cutoff=args.cutoff,
+        window_size=args.windowSize,
+        slide=args.slide,
+        trimfirst=args.trimfirst,
+        maxlengthtelo=args.maxlengthtelo,
+        plot=args.plot,
+        rangecp=args.rangecp,
+        read_check=args.read_check,
+        override=args.override,
+        threads=args.threads,
+        engine=args.engine,
+        batch_size=args.batchSize,
+        resume=args.resume,
+        trace_dir=args.traceDir,
+        scan_length_mode=args.scanLengthMode,
+        use_pallas={"auto": None, "xla": False,
+                    "greedy": "greedy", "sum": "sum"}[args.kernel],
+        process_id=args.processId,
+        process_count=args.processCount,
+        shard_mode=args.shardMode,
+    )
 
 
 def main(argv=None) -> int:
@@ -74,14 +177,7 @@ def main(argv=None) -> int:
     if args.coordinator:
         initialize_distributed(args.coordinator, args.processCount, args.processId)
     try:
-        if cfg.engine == "oracle":
-            from topsicle_tpu.oracle import OracleEngine
-
-            engine = OracleEngine(cfg, log=log)
-        else:
-            from topsicle_tpu_torch.pipeline import TorchEngine
-
-            engine = TorchEngine(cfg, log=log, device=args.device)
+        engine = make_engine(cfg, log=log, device=args.device)
         if args.precompile:
             if cfg.engine == "oracle":
                 log("--precompile only applies to the device engine")

@@ -1,147 +1,394 @@
-// Step-2 sum-signal kernel for Hopper (sm_90a).
+// Step-2 sum-signal kernel for Hopper (sm_90a), with the exact changepoint
+// fused behind it: one thread block per read.
 //
 // Replaces: topsicle_tpu/ops/pallas_kernels.py::_sum_signal_kernel (the
-// TPU kernel behind step2_sum_signal_pallas and _lean).  Computes, for
-// every read b and window w, exactly what ops/match.py::boundary_sum_signal
+// TPU kernel behind step2_sum_signal_pallas and _lean) and, in the fused
+// entry, the changepoint program that follows it
+// (topsicle_tpu/ops/changepoint.py::binseg_l2_device).  For every read b
+// and window w it computes exactly what ops/match.py::boundary_sum_signal
 // computes:
 //
-//   y[b, w] = sum_{j<J} tot[w*slide + j] + K - popcount(OR_{j<J} word[w*slide + j])
+//   y[b, w] = sum_{j<J} popc(word[w*slide + j]) + K - popc(OR_{j<J} word[w*slide + j])
 //
-// with J = window_size - k, tot[p] the number of table entries equal to the
-// base-4 rolling code at position p (duplicate entries each count), and
-// word[p] the presence bits of those entries.  Exact for every table the
-// caller hands it (K <= 31, k <= 15); that the sum equals the greedy
-// non-overlapping count needs an aperiodic table, which the model checks.
+// with J = window_size - k and word[p] the presence bits of the table
+// entries equal to the base-4 rolling code at position p (every entry owns
+// a bit, duplicates too, so popc(word) is the number of entries matching
+// at p).  Exact for every table the caller hands it (K <= 31, k <= 15);
+// that the sum equals the greedy non-overlapping count needs an aperiodic
+// table, which the model checks.  Two entry points share the body:
 //
-// Input is the PLAIN wire the engine already packs (no phase-planar
-// layout): base 4q+s sits at bits 2s of byte q (io.batch.pack_codes /
-// pack_batch), plus either per-read lengths (lean) or an invalid bit-plane
-// whose bit s of byte q marks position 8q+s (dense).
+//   topsicle_sum_signal     y [B, W] int32 goes to device memory
+//   topsicle_sum_boundary   y stays in shared memory, csrc/binseg.cuh finds
+//                           the changepoint there, and only (t int64,
+//                           has uint8) leave the SM: 9 bytes a read
 //
-// What bounds it on this card: not device memory.  The wire is L/4 bytes
-// per read (5 KB at L = 19968) against ~(k + 2K) integer ops per position
-// and ~3J shared-memory reads per window, so it is bound by integer issue
-// and shared-memory bandwidth.  The design keeps every intermediate on
-// chip: one block per (read, tile of windows) stages the tile's bases in
-// shared memory once, writes one uint32 presence word and one uint8 total
-// per position there, and each thread then reduces one window over its J
-// positions.  Neither the codes nor the [positions] planes touch device
-// memory; only y leaves the SM.  (Prefix sums for the total and fusing the
-// changepoint so only (t, has) leave the SM are later work.)
+// Input is the PLAIN wire the engine already packs: base 4q+s sits at
+// bits 2s of byte q (io.batch.pack_codes / pack_batch), plus either
+// per-read lengths (lean) or an invalid bit-plane whose bit s of byte q
+// marks position 8q+s (dense).  Read as a little-endian bit stream, the
+// rolling code at position p is the 2k bits at bit 2p of the wire, and
+// the validity of its k bases the k bits at bit p of the invalid plane:
+// one funnel shift and a mask each, no per-base work.
+//
+// What bounds it on this card: operations, not bytes.  The fused entry
+// moves 0.64 MB a batch of 128 reads of 19,968 bases (the wire, 4,992 B a
+// read; lengths and window counts; 9 B out): 0.19 us at 3.35 TB/s.  The
+// stand-alone entry adds y (1.7 MB): 0.70 us.  The integer work of the
+// body is 11 operations a position (3 where the k-mer lies past the
+// read's length), 8 a group of `slide` positions for the two group scans,
+// 8 a window and 40 a changepoint candidate: at most 0.30 M a read, 38 M
+// a batch, 2.3 us at the card's 16.75 T INT32 operations a second (132
+// SMs * 64 lanes * 1.98 GHz).  One block a read on 128 of 132 SMs, and
+// the serial loops of the group and segment scans, keep the design's own
+// floor above that.
+//
+// The design: a read's wire row (and invalid plane) comes into shared
+// memory once with 16-byte loads (byte loads where a row is not 16-byte
+// aligned).  The presence word comes from a 4^k-entry table in shared
+// memory where that fits (k <= 7: at most 64 KB), else from K compares,
+// and is computed once a position.  Windows cost O(1), not O(J), and no
+// lane takes a branch its neighbours do not:
+//
+//   1. positions are cut into groups of `slide`, so every window starts on
+//      a group boundary and is Q = J / slide whole groups and the first
+//      R = J % slide positions of the next.  One thread a group keeps the
+//      OR and the sum of popc(word) of the whole group and of its first R
+//      positions;
+//   2. the Q whole groups of a window are a sliding window over the group
+//      array: groups are cut into segments of Q, one thread scans a
+//      segment forwards (prefix) and backwards (suffix, in place), and a
+//      window is the suffix at its first group joined with the prefix at
+//      its last (the pieces are a suffix of one segment and a prefix of
+//      the next, so the sums add without overlap);
+//   3. one thread a window joins the pieces and writes y.
+//
+// Nothing is stored per position: six uint32 a group, 80 KB at L = 19,968,
+// slide 6, beside 5 KB of wire, 2.5 KB of plane and the table, with y
+// taking the place of one group array, so two blocks share an SM when
+// B > 132.  Where the windows of a read do not fit at once (slide 1 at
+// that length: 19,949 windows), the block walks them in tiles of as many
+// as fit, each tile with its own groups, and the fused entry keeps y [W]
+// beside the tile's arrays.  A read whose wire and y alone pass a block's
+// 227 KB is refused by the launcher.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "binseg.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kMaxEntries = 31;
+constexpr int kLutMaxK = 7;                     // 4^7 words = 64 KB
+constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
 
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// Dynamic shared-memory layout, in bytes: wire | invalid plane | y (the
+// fused entry, and only when the windows go in several tiles: with one
+// tile y takes the place of a group array) | six arrays of one tile's
+// tile_w + Q groups | table.  One function for the launcher and the kernel.
+constexpr int kGroupArrays = 6;
+
+struct Layout {
+  int wire, inv, y, grp, lut, total;
+};
+
+__host__ __device__ inline Layout layout(int L, int W, int k, int Q, bool dense, bool use_lut,
+                                         int tile_w, bool boundary) {
+  Layout s;
+  s.wire = 0;
+  // a position reads the 32-bit word holding its first bit and the next one
+  s.inv = s.wire + round16((L + 3) / 4 + 8);
+  s.y = s.inv + (dense ? round16((L + 7) / 8 + 8) : 0);
+  s.grp = s.y + (boundary && tile_w < W ? round16(4 * W) : 0);
+  s.lut = s.grp + kGroupArrays * round16(4 * (tile_w + Q));
+  s.total = s.lut + (use_lut ? 4 << (2 * k) : 0);
+  return s;
+}
+
+// The windows a tile holds: all W where they fit, else as many as the
+// space left after the fixed parts allows (0: the read does not fit).
+inline int tile_windows(int L, int W, int k, int Q, bool dense, bool use_lut, bool boundary) {
+  if (layout(L, W, k, Q, dense, use_lut, W, boundary).total <= kSmemLimit) return W;
+  const int fixed = layout(L, W, k, Q, dense, use_lut, 0, boundary).total;
+  // 16 bytes of rounding an array, beyond what `fixed` holds for Q groups
+  const int tile_w = ((kSmemLimit - fixed - 16 * kGroupArrays) / (4 * kGroupArrays)) & ~3;
+  return tile_w > 0 ? tile_w : 0;
+}
+
+// Bring `n` bytes of a row into shared memory: 16 bytes a thread where the
+// row allows it (the caller says), a byte a thread otherwise.
+__device__ __forceinline__ void stage_row(uint8_t* dst, const uint8_t* src, int n, bool vec16) {
+  if (vec16) {
+    const int n16 = (n + 15) >> 4;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < n16; i += kThreads) d4[i] = s4[i];
+  } else {
+    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
+  }
+}
+
+struct Read {
+  const uint32_t* wire;     // the row as 32-bit words
+  const uint32_t* inv;      // the invalid plane as 32-bit words, or nullptr (lean)
+  const uint32_t* lut;      // presence word by rolling code, or nullptr
+  const int32_t* tab;       // the K table entries (no lut)
+  int K, k, len;            // len: the lean wire's valid length, clamped to [0, L]
+  uint32_t code_mask, base_mask;
+};
+
+// Presence word of position p: bit e set iff table entry e equals the
+// rolling code at p and all its k bases are valid.
+__device__ __forceinline__ uint32_t word_at(const Read& r, int p) {
+  if (r.inv != nullptr) {
+    const int wi = p >> 5;
+    if (__funnelshift_r(r.inv[wi], r.inv[wi + 1], p & 31) & r.base_mask) return 0;
+  } else if (p + r.k > r.len) {
+    return 0;
+  }
+  const int wi = p >> 4;
+  const uint32_t code = __funnelshift_r(r.wire[wi], r.wire[wi + 1], (p & 15) * 2) & r.code_mask;
+  if (r.lut != nullptr) return r.lut[code];
+  uint32_t wd = 0;
+  for (int e = 0; e < r.K; ++e) wd |= static_cast<uint32_t>(static_cast<int32_t>(code) == r.tab[e]) << e;
+  return wd;
+}
+
+template <bool kBoundary>
 __global__ void __launch_bounds__(kThreads)
-sum_signal_kernel(const uint8_t* __restrict__ packed, int packed_stride,
-                  const int32_t* __restrict__ lengths,
-                  const uint8_t* __restrict__ invalid, int invalid_stride,
-                  const int32_t* __restrict__ table, int K, int k,
-                  int slide, int J, int L, int W, int tile_w,
-                  int32_t* __restrict__ out) {
+sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec16,
+           const int32_t* __restrict__ lengths,
+           const uint8_t* __restrict__ invalid, int invalid_stride, int invalid_vec16,
+           const int32_t* __restrict__ table, int K, int k,
+           int slide, int J, int L, int W, int use_lut, int tile_w,
+           int32_t* __restrict__ y_out,
+           const int32_t* __restrict__ n_windows, int jump, int min_size,
+           long long* __restrict__ t_out, uint8_t* __restrict__ has_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int32_t tab[kMaxEntries];
+  __shared__ int32_t tab[kMaxEntries + 1];
+  __shared__ topsicle::BinsegScratch scratch;
 
-  const int b = blockIdx.y;
-  const int w0 = blockIdx.x * tile_w;
-  const int n_win = min(tile_w, W - w0);
-  const int max_pos = (tile_w - 1) * slide + J;   // positions of a full tile
-  const int n_pos = (n_win - 1) * slide + J;      // positions this tile reads
-  const int n_base = n_pos + k - 1;
-  const int p0 = w0 * slide;
+  const int b = blockIdx.x;
+  const bool dense = invalid != nullptr;
+  const int Q = J / slide;            // whole groups in a window
+  const int R = J - Q * slide;        // and positions of the next group
+  const Layout lay = layout(L, W, k, Q, dense, use_lut != 0, tile_w, kBoundary);
+  uint8_t* wire8 = smem + lay.wire;
+  uint8_t* inv8 = smem + lay.inv;
+  const int gn = round16(4 * (tile_w + Q)) / 4;           // words per group array
+  uint32_t* g_or = reinterpret_cast<uint32_t*>(smem + lay.grp);   // group, then suffix
+  uint32_t* g_sum = g_or + gn;
+  uint32_t* p_or = g_sum + gn;                                      // first R positions
+  uint32_t* p_sum = p_or + gn;
+  uint32_t* f_or = p_sum + gn;                                      // prefix in the segment
+  uint32_t* f_sum = f_or + gn;
+  uint32_t* lut = reinterpret_cast<uint32_t*>(smem + lay.lut);
 
-  uint32_t* word = reinterpret_cast<uint32_t*>(smem);       // [max_pos]
-  uint8_t* tot = smem + 4 * max_pos;                         // [max_pos]
-  uint8_t* base = tot + max_pos;                             // [max_pos + k - 1]
-
-  // ---- stage the tile's bases: code 0..3, or 4 for an invalid base ----
-  const uint8_t* prow = packed + static_cast<size_t>(b) * packed_stride;
-  const int len = lengths != nullptr ? lengths[b] : L;
-  const uint8_t* irow =
-      invalid != nullptr ? invalid + static_cast<size_t>(b) * invalid_stride : nullptr;
-  for (int i = threadIdx.x; i < n_base; i += blockDim.x) {
-    const int g = p0 + i;
-    uint8_t c = 4;
-    if (g < L && g < len) {
-      c = (prow[g >> 2] >> ((g & 3) * 2)) & 3;
-      if (irow != nullptr && ((irow[g >> 3] >> (g & 7)) & 1)) c = 4;
-    }
-    base[i] = c;
+  // ---- stage the row, the plane and the table ----
+  const int wire_bytes = (L + 3) / 4;
+  stage_row(wire8, packed + static_cast<size_t>(b) * packed_stride, wire_bytes,
+            packed_vec16 != 0);
+  for (int i = wire_bytes + threadIdx.x; i < lay.inv - lay.wire; i += kThreads)
+    if (!packed_vec16 || i >= round16(wire_bytes)) wire8[i] = 0;
+  if (dense) {
+    const int inv_bytes = (L + 7) / 8;
+    stage_row(inv8, invalid + static_cast<size_t>(b) * invalid_stride, inv_bytes,
+              invalid_vec16 != 0);
+    for (int i = inv_bytes + threadIdx.x; i < lay.y - lay.inv; i += kThreads)
+      if (!invalid_vec16 || i >= round16(inv_bytes)) inv8[i] = 0;
   }
   if (threadIdx.x < K) tab[threadIdx.x] = table[threadIdx.x];
+  if (use_lut) {
+    const int n_codes = 1 << (2 * k);
+    for (int i = threadIdx.x; i < n_codes; i += kThreads) lut[i] = 0;
+    __syncthreads();
+    if (threadIdx.x < K) {
+      const int32_t code = tab[threadIdx.x];
+      if (code >= 0 && code < n_codes) atomicOr(&lut[code], 1u << threadIdx.x);
+    }
+  }
   __syncthreads();
 
-  // ---- per position: rolling code, total matches, presence word ----
-  for (int i = threadIdx.x; i < n_pos; i += blockDim.x) {
-    int32_t code = 0;
-    uint32_t bad = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t c = base[i + j];
-      bad |= c >> 2;
-      code |= static_cast<int32_t>(c & 3) << (2 * j);
+  Read r;
+  r.wire = reinterpret_cast<const uint32_t*>(wire8);
+  r.inv = dense ? reinterpret_cast<const uint32_t*>(inv8) : nullptr;
+  r.lut = use_lut ? lut : nullptr;
+  r.tab = tab;
+  r.K = K;
+  r.k = k;
+  r.len = lengths != nullptr ? max(0, min(lengths[b], L)) : L;
+  r.code_mask = (1u << (2 * k)) - 1u;
+  r.base_mask = (1u << k) - 1u;
+
+  // y of the fused entry: its own array, or with one tile the suffix
+  // sums' array, which each thread overwrites at the index it alone reads
+  int32_t* y = tile_w < W ? reinterpret_cast<int32_t*>(smem + lay.y)
+                          : reinterpret_cast<int32_t*>(g_sum);
+
+  for (int w0 = 0; w0 < W; w0 += tile_w) {
+    // Positions, groups and windows are counted from the tile's first:
+    // window i is groups i .. i + Q - 1 and R positions of group i + Q.
+    const int n_win = min(tile_w, W - w0);
+    const int p0 = w0 * slide;
+    const int n_pos = (n_win - 1) * slide + J;      // positions the tile's windows read
+    const int n_grp = n_win + Q;
+
+    // ---- 1. per group: the OR and the sum over it and over its first R ----
+    for (int g = threadIdx.x; g < n_grp; g += kThreads) {
+      const int first = g * slide;
+      const int n = min(slide, n_pos - first);      // the last group ends with the tile
+      uint32_t acc_or = 0, acc_sum = 0, part_or = 0, part_sum = 0;
+      for (int j = 0; j < n; ++j) {
+        const uint32_t wd = word_at(r, p0 + first + j);
+        acc_or |= wd;
+        acc_sum += __popc(wd);
+        if (j == R - 1) {
+          part_or = acc_or;
+          part_sum = acc_sum;
+        }
+      }
+      g_or[g] = acc_or;
+      g_sum[g] = acc_sum;
+      p_or[g] = part_or;
+      p_sum[g] = part_sum;
     }
-    uint32_t wd = 0;
-    uint32_t cnt = 0;
-    if (!bad) {
-      for (int e = 0; e < K; ++e) {
-        const uint32_t eq = code == tab[e];
-        cnt += eq;
-        wd |= eq << e;
+    __syncthreads();
+
+    // ---- 2. segments of Q groups: prefix, and suffix in place ----
+    if (Q >= 1) {
+      const int n_full = n_win + Q - 1;             // groups that windows hold whole
+      const int n_seg = (n_full + Q - 1) / Q;
+      for (int seg = threadIdx.x; seg < n_seg; seg += kThreads) {
+        const int start = seg * Q;
+        const int end = min(start + Q, n_full);
+        uint32_t acc_or = 0, acc_sum = 0;
+        for (int g = start; g < end; ++g) {
+          acc_or |= g_or[g];
+          acc_sum += g_sum[g];
+          f_or[g] = acc_or;
+          f_sum[g] = acc_sum;
+        }
+        acc_or = 0;
+        acc_sum = 0;
+        for (int g = end - 1; g >= start; --g) {
+          acc_or |= g_or[g];
+          acc_sum += g_sum[g];
+          g_or[g] = acc_or;
+          g_sum[g] = acc_sum;
+        }
+      }
+      __syncthreads();
+    }
+
+    // ---- 3. per window: join the pieces ----
+    // A window that starts on a segment boundary IS that segment: its
+    // suffix holds all of it.  Else it is the suffix from its first group
+    // and the next segment's prefix up to its last.
+    int phase = Q >= 1 ? threadIdx.x % Q : 0;       // w % Q, kept without dividing
+    const int phase_step = Q >= 1 ? kThreads % Q : 0;
+    for (int w = threadIdx.x; w < n_win; w += kThreads) {
+      uint32_t o = 0, sum = 0;
+      if (Q >= 1) {
+        o = g_or[w];
+        sum = g_sum[w];
+        if (phase != 0) {
+          o |= f_or[w + Q - 1];
+          sum += f_sum[w + Q - 1];
+        }
+        phase += phase_step;
+        if (phase >= Q) phase -= Q;
+      }
+      if (R > 0) {
+        o |= p_or[w + Q];
+        sum += p_sum[w + Q];
+      }
+      const int32_t v = static_cast<int32_t>(sum) + K - __popc(o);
+      if (kBoundary) {
+        y[w0 + w] = v;
+      } else {
+        y_out[static_cast<size_t>(b) * W + w0 + w] = v;
       }
     }
-    word[i] = wd;
-    tot[i] = static_cast<uint8_t>(cnt);
+    __syncthreads();      // the next tile, or the changepoint, reuses the arrays
   }
-  __syncthreads();
+  if (kBoundary) {
+    topsicle::binseg_block<kThreads>(y, W, static_cast<long long>(n_windows[b]), jump,
+                                     min_size, scratch, t_out + b, has_out + b);
+  }
+}
 
-  // ---- per window: sum of totals, OR of words, popcount ----
-  const uint32_t mask = (1u << K) - 1u;
-  int32_t* orow = out + static_cast<size_t>(b) * W;
-  for (int t = threadIdx.x; t < n_win; t += blockDim.x) {
-    const int s0 = t * slide;
-    int32_t s = 0;
-    uint32_t o = 0;
-    for (int j = 0; j < J; ++j) {
-      s += tot[s0 + j];
-      o |= word[s0 + j];
-    }
-    orow[w0 + t] = s + K - __popc(o & mask);
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or -2
+// when a read of L bases does not fit a block's shared memory.
+template <bool kBoundary>
+int launch(const void* packed, int packed_stride, const void* lengths, const void* invalid,
+           int invalid_stride, const void* table, int K, int k, int slide, int J, int L,
+           int W, int B, void* y_out, const void* n_windows, int jump, int min_size,
+           void* t_out, void* has_out, void* stream) {
+  const bool dense = invalid != nullptr;
+  // the table where it leaves room for all windows or a tile of 1,024
+  const int Q = J / slide;
+  bool use_lut = k <= kLutMaxK;
+  int tile_w = use_lut ? tile_windows(L, W, k, Q, dense, true, kBoundary) : 0;
+  if (tile_w < W && tile_w < 1024) {
+    use_lut = false;
+    tile_w = tile_windows(L, W, k, Q, dense, false, kBoundary);
   }
+  if (tile_w < 1) return -2;
+  const int smem_bytes = layout(L, W, k, Q, dense, use_lut, tile_w, kBoundary).total;
+  if (smem_bytes > kSmemLimit) return -2;
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        sum_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const auto aligned16 = [](const void* p, int stride) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 16 == 0;
+  };
+  sum_kernel<kBoundary><<<B, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const uint8_t*>(invalid), invalid_stride,
+      dense && aligned16(invalid, invalid_stride),
+      static_cast<const int32_t*>(table), K, k, slide, J, L, W, use_lut, tile_w,
+      static_cast<int32_t*>(y_out), static_cast<const int32_t*>(n_windows), jump, min_size,
+      static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
 // Pointers are device pointers; exactly one of `lengths` (lean wire) and
-// `invalid` (dense wire) is non-null.  `smem_bytes` is the dynamic shared
-// memory the caller computed for `tile_w` windows per block.
+// `invalid` (dense wire) is non-null.  Needs J >= 1, W >= 1, B >= 1,
+// K <= 31, k <= 15.
 extern "C" int topsicle_sum_signal(const void* packed, int packed_stride,
                                    const void* lengths,
                                    const void* invalid, int invalid_stride,
                                    const void* table, int K, int k,
                                    int slide, int J, int L, int W, int B,
-                                   int tile_w, int smem_bytes,
                                    void* out, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sum_signal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid((W + tile_w - 1) / tile_w, B);
-  sum_signal_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), packed_stride,
-      static_cast<const int32_t*>(lengths),
-      static_cast<const uint8_t*>(invalid), invalid_stride,
-      static_cast<const int32_t*>(table), K, k, slide, J, L, W, tile_w,
-      static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
+                       slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
+}
+
+// The same, followed in the block by the changepoint: `n_windows` [B]
+// int32, `t_out` [B] int64, `has_out` [B] uint8 (0 or 1).  Needs
+// jump >= 1 and min_size >= 1.
+extern "C" int topsicle_sum_boundary(const void* packed, int packed_stride,
+                                     const void* lengths,
+                                     const void* invalid, int invalid_stride,
+                                     const void* table, int K, int k,
+                                     int slide, int J, int L, int W, int B,
+                                     const void* n_windows, int jump, int min_size,
+                                     void* t_out, void* has_out, void* stream) {
+  return launch<true>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
+                      slide, J, L, W, B, nullptr, n_windows, jump, min_size, t_out, has_out,
+                      stream);
 }
 
 extern "C" const char* topsicle_cuda_error_string(int code) {
+  if (code == -2) return "the read does not fit a block's shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

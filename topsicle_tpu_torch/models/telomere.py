@@ -6,10 +6,11 @@ every table with k <= 15:
   step 1: [B, 2, no_bp] end codes -> [B, 2, K] greedy counts: occurrence
           sums in plain torch for aperiodic tables, else the CUDA greedy
           kernel with one window over each end (ops.greedy_counts)
-  step 2: [B, L] tail codes -> (t, has): a window-signal kernel, then
-          the exact changepoint.  The sum kernel (ops.sum_signal) for
-          aperiodic tables with K <= 31, the greedy kernel
-          (ops.greedy_signal) for the rest or when asked for
+  step 2: [B, L] tail codes -> (t, has): the window signal and its exact
+          changepoint.  One fused kernel (ops.sum_boundary) for aperiodic
+          tables with K <= 31; the greedy kernel (ops.greedy_signal)
+          followed by the changepoint kernel (ops.binseg_l2) for the
+          rest or when asked for
   rawcounts: [B, L] tail codes -> [B, K, W] per-entry greedy counts, no
           floor (ops.greedy_counts), for --rawcountpattern and --plot
 
@@ -28,10 +29,10 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from topsicle_tpu.io import batch as batching
-from topsicle_tpu.kmers import aperiodic_mask, pack_kmer_table
 from topsicle_tpu_torch import ops
 from topsicle_tpu_torch.device import resolve_device
+from topsicle_tpu_torch.io import batch as batching
+from topsicle_tpu_torch.kmers import aperiodic_mask, pack_kmer_table
 
 
 def _batch_is_clean(codes: np.ndarray, lens: np.ndarray) -> bool:
@@ -88,7 +89,11 @@ class TorchScanModel:
     sum kernel when the table is inside its envelope (every entry
     aperiodic, K <= 31), and the greedy kernel otherwise; "greedy" always
     takes the greedy kernel.  "sum" outside the envelope warns and takes
-    the greedy kernel, as the JAX model does."""
+    the greedy kernel, as the JAX model does.  Auto runs the sum kernel
+    fused with the changepoint (one launch, ops.sum_boundary); an explicit
+    "sum" runs the two kernels one after the other (ops.sum_signal, then
+    ops.binseg_l2), the route the fused one can be checked against end
+    to end.  The results are bit-identical."""
 
     def __init__(self, kmers: Sequence[str], *, device: str | torch.device = "cuda",
                  window_size: int = 100, slide: int = 7, jump: int = 5,
@@ -113,6 +118,7 @@ class TorchScanModel:
         self.aperiodic = all(aperiodic_mask(self.kmers))
         in_sum_envelope = self.aperiodic and self.K <= ops.cuda_kernels.MAX_ENTRIES
         self.kernel = "sum" if requested != "greedy" and in_sum_envelope else "greedy"
+        self.fused = self.kernel == "sum" and requested is None
         if requested == "sum" and self.kernel != "sum":
             warnings.warn("kernel 'sum' requires a table of aperiodic k-mers with "
                           f"K <= {ops.cuda_kernels.MAX_ENTRIES} entries; falling back "
@@ -176,14 +182,22 @@ class TorchScanModel:
     # ---- step 2 ------------------------------------------------------------
     def step2_boundary_launch_packed(self, packed, n_windows: np.ndarray
                                      ) -> Tuple[HostResult, HostResult]:
-        """(t, has) handles for a pack_scan_batch result: the model's
-        signal kernel on the wire as packed, then the exact changepoint."""
+        """(t, has) handles for a pack_scan_batch result.  The sum kernel
+        has the exact changepoint fused behind it (ops.sum_boundary, one
+        launch) unless it was asked for by name; then, and after the
+        greedy kernel, the changepoint is ops.binseg_l2's launch.  The
+        window counts ride one pinned copy, as the wire does."""
         a, b, L, lean = self._wire_to_device(packed)
-        signal = ops.sum_signal if self.kernel == "sum" else ops.greedy_signal
-        y = signal(a, b, self.table, k=self.k, window_size=self.window_size,
-                   slide=self.slide, L=L, lean=lean)
-        t, has = ops.binseg_l2_device(y, self._to_device(np.asarray(n_windows)),
-                                      jump=self.jump, min_size=self.min_size)
+        n = self._to_device(np.asarray(n_windows, dtype=np.int32))
+        geometry = dict(k=self.k, window_size=self.window_size, slide=self.slide, L=L,
+                        lean=lean)
+        if self.fused:
+            t, has = ops.sum_boundary(a, b, self.table, n, jump=self.jump,
+                                      min_size=self.min_size, **geometry)
+        else:
+            signal = ops.sum_signal if self.kernel == "sum" else ops.greedy_signal
+            t, has = ops.binseg_l2(signal(a, b, self.table, **geometry), n,
+                                   jump=self.jump, min_size=self.min_size)
         return HostResult(t), HostResult(has)
 
     def step2_boundary_launch(self, tail_codes: np.ndarray, n_windows: np.ndarray,

@@ -1,0 +1,325 @@
+// tsio: native host input pipeline for topsicle-tpu.
+//
+// The reference tool's hot host loops live in C libraries it calls from
+// Python (zlib decompression, CPython regex, Biopython parsing — see
+// SURVEY.md §2.2).  This library is the framework's own native layer:
+// block-wise gzip inflate, FASTA/FASTQ parsing, and base encoding in one
+// pass, delivering (read id, base codes) batches through a C ABI that
+// numpy/ctypes can consume zero-copy.  Also provides the subset-file
+// writer (Biopython-compatible formatting: bare '+', 60-column FASTA).
+//
+// Build: g++ -O3 -std=c++17 -fPIC -shared tsio.cc -o _tsio.so -lz
+//
+// Base codes match topsicle_tpu.kmers: A=0 C=1 G=2 T=3, others=4
+// (case-insensitive).
+
+#include <zlib.h>
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <unordered_set>
+#include <vector>
+
+namespace {
+
+constexpr size_t kBufSize = 1 << 20;
+
+struct EncodeLut {
+  uint8_t t[256];
+  EncodeLut() {
+    memset(t, 4, sizeof(t));
+    t[(unsigned)'A'] = t[(unsigned)'a'] = 0;
+    t[(unsigned)'C'] = t[(unsigned)'c'] = 1;
+    t[(unsigned)'G'] = t[(unsigned)'g'] = 2;
+    t[(unsigned)'T'] = t[(unsigned)'t'] = 3;
+  }
+};
+const EncodeLut kLut;
+
+// Buffered line reader over plain or gzip files (gzFile handles both:
+// zlib passes non-gzip data through transparently).
+class LineReader {
+ public:
+  explicit LineReader(const char* path) : gz_(gzopen(path, "rb")) {
+    if (gz_) gzbuffer(gz_, kBufSize);
+  }
+  ~LineReader() {
+    if (gz_) gzclose(gz_);
+  }
+  bool ok() const { return gz_ != nullptr; }
+
+  // True after a decode/IO failure (e.g. truncated gzip stream) —
+  // distinguishes real EOF from a stream that died mid-way.
+  bool error() const { return err_; }
+
+  // Reads one line (without trailing \n / \r\n) into out; false on EOF.
+  bool getline(std::string& out) {
+    out.clear();
+    while (true) {
+      if (pos_ >= len_) {
+        len_ = gzread(gz_, buf_, kBufSize);
+        pos_ = 0;
+        if (len_ <= 0) {
+          int errnum = Z_OK;
+          gzerror(gz_, &errnum);
+          if (len_ < 0 || errnum != Z_OK || (len_ == 0 && !gzeof(gz_)))
+            err_ = true;
+          return !out.empty();
+        }
+      }
+      char* nl = static_cast<char*>(memchr(buf_ + pos_, '\n', len_ - pos_));
+      if (nl) {
+        out.append(buf_ + pos_, nl - (buf_ + pos_));
+        pos_ = (nl - buf_) + 1;
+        if (!out.empty() && out.back() == '\r') out.pop_back();
+        return true;
+      }
+      out.append(buf_ + pos_, len_ - pos_);
+      pos_ = len_;
+    }
+  }
+
+ private:
+  gzFile gz_ = nullptr;
+  char buf_[kBufSize];
+  int pos_ = 0, len_ = 0;
+  bool err_ = false;
+};
+
+struct Record {
+  std::string header;  // without '>'/'@'
+  std::string seq;
+  std::string qual;  // empty for fasta
+};
+
+// Streaming FASTA/FASTQ record parser (format sniffed from first line).
+class RecordReader {
+ public:
+  explicit RecordReader(const char* path) : lr_(path) {
+    if (!lr_.ok()) return;
+    if (!lr_.getline(line_)) return;
+    if (!line_.empty() && line_[0] == '@') fmt_ = 2;
+    else if (!line_.empty() && line_[0] == '>') fmt_ = 1;
+  }
+  int format() const { return fmt_; }
+
+  bool next(Record& rec) {
+    if (fmt_ == 2) return next_fastq(rec);
+    if (fmt_ == 1) return next_fasta(rec);
+    return false;
+  }
+
+  // 0 = clean; 1 = IO/decode failure (truncated gzip); 2 = malformed
+  // record (stream stopped mid-record or on a bad marker line).
+  int error() const {
+    if (lr_.error()) return 1;
+    return malformed_ ? 2 : 0;
+  }
+
+ private:
+  bool next_fastq(Record& rec) {
+    if (done_) return false;
+    while (line_.empty()) {  // skip blank separator lines (python parity)
+      if (!lr_.getline(line_)) {
+        done_ = true;
+        return false;
+      }
+    }
+    if (line_[0] != '@') {
+      malformed_ = true;
+      return false;
+    }
+    rec.header.assign(line_, 1, std::string::npos);
+    // sequence wraps over any number of lines until the '+' separator
+    // (Bio.SeqIO envelope; 4-line files take one pass)
+    rec.seq.clear();
+    bool saw_plus = false;
+    while (lr_.getline(line_)) {
+      if (!line_.empty() && line_[0] == '+') {
+        saw_plus = true;
+        break;
+      }
+      rec.seq += line_;
+    }
+    if (!saw_plus) {
+      malformed_ = true;  // EOF before the '+' line
+      return false;
+    }
+    // quality is length-delimited (lines may start with '@'), never
+    // marker-delimited
+    rec.qual.clear();
+    while (rec.qual.size() < rec.seq.size()) {
+      if (!lr_.getline(line_)) {
+        malformed_ = true;  // quality shorter than sequence
+        return false;
+      }
+      rec.qual += line_;
+    }
+    if (rec.qual.size() != rec.seq.size()) {
+      malformed_ = true;  // quality overshot the sequence length
+      return false;
+    }
+    if (!lr_.getline(line_)) done_ = true;
+    return true;
+  }
+
+  bool next_fasta(Record& rec) {
+    if (done_) return false;
+    if (line_.empty() || line_[0] != '>') return false;
+    rec.header.assign(line_, 1, std::string::npos);
+    rec.seq.clear();
+    rec.qual.clear();
+    while (true) {
+      if (!lr_.getline(line_)) {
+        done_ = true;
+        return true;
+      }
+      if (!line_.empty() && line_[0] == '>') return true;
+      rec.seq += line_;
+    }
+  }
+
+  LineReader lr_;
+  std::string line_;
+  int fmt_ = 0;
+  bool done_ = false;
+  bool malformed_ = false;
+};
+
+struct Reader {
+  RecordReader rr;
+  int64_t min_len;
+  Record pending;
+  bool has_pending = false;
+  explicit Reader(const char* path, int64_t ml) : rr(path), min_len(ml) {}
+};
+
+std::string first_token(const std::string& header) {
+  size_t end = header.find_first_of(" \t");
+  return end == std::string::npos ? header : header.substr(0, end);
+}
+
+}  // namespace
+
+extern "C" {
+
+void* tsio_open(const char* path, int64_t min_len) {
+  Reader* r = new Reader(path, min_len);
+  if (r->rr.format() == 0) {
+    delete r;
+    return nullptr;
+  }
+  return r;
+}
+
+int tsio_format(void* handle) {
+  return handle ? static_cast<Reader*>(handle)->rr.format() : 0;
+}
+
+// Delivers up to max_reads eligible reads (len > min_len), encoded.
+// codes: concatenated base codes; read_offsets[i+1]-read_offsets[i] is
+// read i's length.  ids: concatenated id bytes with id_offsets likewise.
+// Returns the number of reads (0 = EOF), or -2 if a read did not fit in
+// the remaining buffer space (caller retries with bigger buffers; the
+// pending read is preserved).
+int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
+                  int64_t* read_offsets, char* ids, int64_t ids_cap,
+                  int64_t* id_offsets, int64_t max_reads) {
+  Reader* r = static_cast<Reader*>(handle);
+  int64_t n = 0, code_pos = 0, id_pos = 0;
+  read_offsets[0] = 0;
+  id_offsets[0] = 0;
+  Record rec;
+  while (n < max_reads) {
+    if (r->has_pending) {
+      rec = std::move(r->pending);
+      r->has_pending = false;
+    } else if (!r->rr.next(rec)) {
+      if (r->rr.error()) return -3;  // truncated/corrupt stream
+      break;
+    }
+    if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) continue;
+    std::string id = first_token(rec.header);
+    if (code_pos + static_cast<int64_t>(rec.seq.size()) > codes_cap ||
+        id_pos + static_cast<int64_t>(id.size()) > ids_cap) {
+      r->pending = std::move(rec);
+      r->has_pending = true;
+      return n > 0 ? n : -2;
+    }
+    for (char c : rec.seq) codes[code_pos++] = kLut.t[(unsigned char)c];
+    memcpy(ids + id_pos, id.data(), id.size());
+    id_pos += id.size();
+    ++n;
+    read_offsets[n] = code_pos;
+    id_offsets[n] = id_pos;
+  }
+  return n;
+}
+
+void tsio_close(void* handle) { delete static_cast<Reader*>(handle); }
+
+// Writes the subset file: records whose id is in ids_joined
+// ('\n'-separated), formatted Biopython-style.  fastq_out selects the
+// output format (the caller applies the reference's extension rule).
+// Returns records written, or -1 on error.
+int64_t tsio_subset(const char* in_path, const char* out_path,
+                    const char* ids_joined, int fastq_out) {
+  std::unordered_set<std::string> keep;
+  {
+    const char* p = ids_joined;
+    while (*p) {
+      const char* nl = strchr(p, '\n');
+      if (!nl) {
+        keep.emplace(p);
+        break;
+      }
+      keep.emplace(p, nl - p);
+      p = nl + 1;
+    }
+  }
+  RecordReader rr(in_path);
+  if (rr.format() == 0) return -1;
+  FILE* out = fopen(out_path, "w");
+  if (!out) return -1;
+  Record rec;
+  int64_t written = 0;
+  std::string buf;
+  while (rr.next(rec)) {
+    if (!keep.count(first_token(rec.header))) continue;
+    buf.clear();
+    if (fastq_out) {
+      buf += '@';
+      buf += rec.header;
+      buf += '\n';
+      buf += rec.seq;
+      buf += "\n+\n";
+      if (rec.qual.empty()) buf.append(rec.seq.size(), 'I');
+      else buf += rec.qual;
+      buf += '\n';
+    } else {
+      buf += '>';
+      buf += rec.header;
+      buf += '\n';
+      for (size_t i = 0; i < rec.seq.size(); i += 60) {
+        buf.append(rec.seq, i, std::min<size_t>(60, rec.seq.size() - i));
+        buf += '\n';
+      }
+    }
+    if (fwrite(buf.data(), 1, buf.size(), out) != buf.size()) {
+      fclose(out);
+      remove(out_path);
+      return -1;
+    }
+    ++written;
+  }
+  fclose(out);
+  if (rr.error()) {  // stream died mid-way: the subset is incomplete
+    remove(out_path);
+    return -1;
+  }
+  return written;
+}
+
+}  // extern "C"

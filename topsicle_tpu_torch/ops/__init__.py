@@ -4,10 +4,13 @@ the CPU, the card and the JAX reference."""
 
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device  # noqa: F401
 from topsicle_tpu_torch.ops.cuda_kernels import (  # noqa: F401
+    binseg_l2,
     greedy_counts,
     greedy_counts_plain,
     greedy_signal,
     greedy_signal_plain,
+    sum_boundary,
+    sum_boundary_plain,
     sum_signal,
     sum_signal_plain,
 )

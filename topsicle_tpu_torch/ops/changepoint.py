@@ -7,6 +7,10 @@ integers: A = n*S_t - t*S_n and D = t*(n-t) in int64, and the cross
 compare A1^2*D2 vs A2^2*D1 in multi-limb arithmetic.  Ties go to the
 smaller t (ruptures' first-best-wins).
 
+This is the plain version of the CUDA changepoint (csrc/binseg.cuh, behind
+ops.cuda_kernels.sum_boundary and binseg_l2): it runs on the CPU and in
+the checks that hold the kernels against it, never on a card's path.
+
 torch has no uint64 add, shift or compare on the CPU, so the limbs are
 31-bit values held in int64: a limb times a multiplier digit below 2**32,
 plus a carry below 2**32, stays below 2**63.  That keeps the reference's
@@ -20,6 +24,11 @@ import torch
 import torch.nn.functional as F
 
 _M31 = (1 << 31) - 1
+
+# Calls of binseg_l2_device by the device type of its input.  On a card the
+# engine's path goes through the CUDA changepoint (ops.cuda_kernels), so a
+# run there can show that "cuda" stayed 0.
+PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 
 
 def _sq_limbs(a: torch.Tensor):
@@ -108,6 +117,7 @@ def binseg_l2_device(y_int: torch.Tensor, num_windows: torch.Tensor,
     length in windows."""
     B, W = y_int.shape
     dev = y_int.device
+    PLAIN_CALLS[dev.type] = PLAIN_CALLS.get(dev.type, 0) + 1
     J = W // jump
     if J < 1:
         return (torch.zeros(B, dtype=torch.int64, device=dev),

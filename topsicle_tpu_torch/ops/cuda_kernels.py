@@ -1,8 +1,16 @@
 """Hand-written CUDA kernels and their wrappers.
 
-  sum_signal     csrc/sum_signal.cu     the step-2 window signal for
-                 aperiodic tables (replaces the TPU kernel
+  sum_boundary   csrc/sum_signal.cu     step 2 for aperiodic tables in one
+                 launch: the window signal (replaces the TPU kernel
                  topsicle_tpu/ops/pallas_kernels.py::_sum_signal_kernel)
+                 with the exact changepoint (csrc/binseg.cuh) behind it in
+                 the same block, so only (t, has) leave the SM
+  sum_signal     csrc/sum_signal.cu     the same body with y [B, W] written
+                 to device memory instead
+  binseg_l2      csrc/binseg.cu         the exact changepoint alone
+                 (csrc/binseg.cuh on a y in device memory; replaces the
+                 program topsicle_tpu/ops/changepoint.py::binseg_l2_device);
+                 follows greedy_signal
   greedy_signal  csrc/greedy_signal.cu  the step-2 window signal for every
                  table (replaces pallas_kernels.py::_signal_kernel)
   greedy_counts  csrc/greedy_signal.cu  the same kernel without the floor:
@@ -11,9 +19,9 @@
 
 Every csrc/*.cu is compiled with nvcc (one process per source, started
 together, then one link) into a single shared library with a plain C
-interface at first use, keyed on a hash of all the sources and flags,
-and loaded with ctypes.  Nothing is built or imported from CUDA when this
-module is imported.
+interface at first use, keyed on a hash of all the sources, the headers
+they include (csrc/*.cuh) and the flags, and loaded with ctypes.  Nothing
+is built or imported from CUDA when this module is imported.
 
 A wrapper takes its kernel's plain torch version only for tensors on
 the CPU.  For a CUDA tensor it launches the kernel or raises: a failed
@@ -33,6 +41,7 @@ from pathlib import Path
 
 import torch
 
+from topsicle_tpu_torch.ops.changepoint import binseg_l2_device
 from topsicle_tpu_torch.ops.match import (MAX_ROLLING_K, boundary_sum_signal,
                                           match_positions, num_windows,
                                           unpack_wire, window_counts,
@@ -46,11 +55,12 @@ COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", 
 LINK_FLAGS = [*_ARCH, "-shared"]
 
 MAX_ENTRIES = 31            # sum_signal's presence word bits
-_TILE_WINDOWS = 256        # windows per block, before the shared-memory clamp
+_TILE_WINDOWS = 256        # the greedy kernel's windows per block, before the clamp
 _SMEM_LIMIT = 232448 - 1024  # Hopper's per-block maximum, less the static table
 
 # Launches of each kernel made by its wrapper (and only there).
-LAUNCHES = {"sum_signal": 0, "greedy_signal": 0, "greedy_counts": 0}
+LAUNCHES = {"sum_boundary": 0, "sum_signal": 0, "binseg_l2": 0, "greedy_signal": 0,
+            "greedy_counts": 0}
 
 
 def reset_launch_counts() -> None:
@@ -78,10 +88,16 @@ def find_nvcc() -> str:
     return exe
 
 
+def headers() -> list:
+    """Every header the sources may include, in a fixed order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    """Where the built library for the current sources and flags lives."""
+    """Where the built library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode() + b"\0" + src.read_bytes() + b"\0")
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libtopsicle_kernels_{h.hexdigest()[:16]}.so"
@@ -136,9 +152,14 @@ def load_library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            for fn in ("topsicle_sum_signal", "topsicle_greedy_signal",
-                       "topsicle_greedy_counts"):
-                getattr(lib, fn).argtypes = [p, i, p, p, i, p, i, i, i, i, i, i, i, i, i, p, p]
+            wire = [p, i, p, p, i, p, i, i, i, i, i, i, i]   # packed .. W, B
+            for fn, args in (
+                    ("topsicle_sum_signal", [*wire, p, p]),
+                    ("topsicle_sum_boundary", [*wire, p, i, i, p, p, p]),
+                    ("topsicle_binseg_l2", [p, i, i, p, i, i, p, p, p]),
+                    ("topsicle_greedy_signal", [*wire, i, i, p, p]),
+                    ("topsicle_greedy_counts", [*wire, i, i, p, p])):
+                getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
             lib.topsicle_cuda_error_string.argtypes = [ctypes.c_int]
             lib.topsicle_cuda_error_string.restype = ctypes.c_char_p
@@ -146,16 +167,16 @@ def load_library() -> ctypes.CDLL:
         return _LIB
 
 
-# ---- sum_signal ------------------------------------------------------------
+# ---- shared by the wrappers --------------------------------------------------
 
 def tile_geometry(k: int, slide: int, J: int, W: int, *, pos_bytes: int = 6,
                   win_bytes: int = 0):
     """(windows per block, dynamic shared-memory bytes) for a kernel whose
     tile of T windows stages P = (T-1)*slide + J positions at `pos_bytes`
     each, T windows at `win_bytes` each, and k - 1 more base codes.
-    sum_signal: a uint32 word, a uint8 total and a base per position.
-    greedy: an int32 rolling code and a base per position, an int32 sum
-    per window."""
+    The greedy kernel: an int32 rolling code and a base per position, an
+    int32 sum per window.  (The sum kernel holds a whole read per block
+    and sizes its own shared memory, see csrc/sum_signal.cu.)"""
     tile = max(1, min(_TILE_WINDOWS, W))
     while True:
         pos = (tile - 1) * slide + J
@@ -205,29 +226,30 @@ def _check_wire(name: str, codes_wire: torch.Tensor, aux: torch.Tensor,
     return dev
 
 
-def _launch(name: str, out: torch.Tensor, codes_wire: torch.Tensor, aux: torch.Tensor,
-            table: torch.Tensor, *, k: int, slide: int, J: int, W: int, L: int,
-            lean: bool, tile: int, smem: int) -> torch.Tensor:
-    """Launch topsicle_<name> on the current stream into `out`; raises
-    on a non-zero launch code, counts the launch otherwise."""
-    lib = load_library()
-    dev = codes_wire.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"topsicle_{name}")(
-            codes_wire.data_ptr(), codes_wire.shape[1],
+def _wire_args(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor, *,
+               k: int, slide: int, J: int, W: int, L: int, lean: bool) -> list:
+    """The arguments every wire-reading kernel starts with: packed .. B."""
+    return [codes_wire.data_ptr(), codes_wire.shape[1],
             aux.data_ptr() if lean else None,
             None if lean else aux.data_ptr(), 0 if lean else aux.shape[1],
-            table.data_ptr(), int(table.shape[0]), k, slide, J, L, W,
-            codes_wire.shape[0], tile, smem, out.data_ptr(), stream)
+            table.data_ptr(), int(table.shape[0]), k, slide, J, L, W, codes_wire.shape[0]]
+
+
+def _launch(name: str, dev: torch.device, *args) -> None:
+    """Launch topsicle_<name>(*args, stream) on `dev`'s current stream;
+    raises on a non-zero launch code, counts the launch otherwise."""
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"topsicle_{name}")(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.topsicle_cuda_error_string(rc).decode()
+        if rc == -2:      # the launcher's own refusal, not a CUDA error
+            raise ValueError(f"{name}: {msg}")
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
-    return out
 
 
-# ---- sum_signal ------------------------------------------------------------
+# ---- sum_signal, sum_boundary and binseg_l2 ----------------------------------
 
 def sum_signal_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                      *, k: int, window_size: int, slide: int, L: int,
@@ -251,11 +273,7 @@ def sum_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
     table:      [K] int32 base-4 rolling codes (-1 never matches)
     Bit-identical to sum_signal_plain.  K <= 31 and k <= 15; equal to
     greedy_signal only for aperiodic tables (the model checks)."""
-    K = int(table.shape[0])
-    if K > MAX_ENTRIES:
-        raise ValueError(f"sum_signal holds at most {MAX_ENTRIES} table entries, got {K}")
-    if k > MAX_ROLLING_K:
-        raise ValueError(f"sum_signal takes k <= {MAX_ROLLING_K}, got {k}")
+    _check_sum_table("sum_signal", table, k)
     if codes_wire.device.type == "cpu":
         return sum_signal_plain(codes_wire, aux, table, k=k, window_size=window_size,
                                 slide=slide, L=L, lean=lean)
@@ -265,10 +283,92 @@ def sum_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
     W = num_windows(L, window_size, slide)
     if J <= 0 or W == 0 or B == 0:
         return torch.zeros((B, W), dtype=torch.int32, device=dev)
-    tile, smem = tile_geometry(k, slide, J, W)
-    return _launch("sum_signal", torch.empty((B, W), dtype=torch.int32, device=dev),
-                   codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L,
-                   lean=lean, tile=tile, smem=smem)
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    _launch("sum_signal", dev,
+            *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
+            out.data_ptr())
+    return out
+
+
+def _check_sum_table(name: str, table: torch.Tensor, k: int) -> None:
+    if int(table.shape[0]) > MAX_ENTRIES:
+        raise ValueError(f"{name} holds at most {MAX_ENTRIES} table entries, "
+                         f"got {int(table.shape[0])}")
+    if k > MAX_ROLLING_K:
+        raise ValueError(f"{name} takes k <= {MAX_ROLLING_K}, got {k}")
+
+
+def binseg_l2(y_int: torch.Tensor, n_windows: torch.Tensor, jump: int = 5,
+              min_size: int = 2):
+    """Exact argmax changepoint per row of y_int [B, W] int32 with the
+    valid-window counts n_windows [B] int32: (t [B] int64, has [B] bool).
+    Bit-identical to ops.changepoint.binseg_l2_device, its plain version,
+    over that function's whole range (|A| < 2**63, D < 2**62), any W."""
+    if y_int.device.type == "cpu":
+        return binseg_l2_device(y_int, n_windows, jump=jump, min_size=min_size)
+    if y_int.device.type != "cuda":
+        raise ValueError(f"binseg_l2 runs on cuda or cpu tensors, got {y_int.device}")
+    dev = y_int.device
+    _check(y_int, "y_int", torch.int32, 2, dev)
+    _check(n_windows, "n_windows", torch.int32, 1, dev)
+    B, W = y_int.shape
+    if n_windows.shape[0] != B:
+        raise ValueError(f"n_windows {tuple(n_windows.shape)} does not match batch {B}")
+    if jump < 1 or min_size < 1:
+        raise ValueError(f"binseg_l2 takes jump >= 1 and min_size >= 1, got {jump}, {min_size}")
+    if B == 0 or W == 0:
+        return (torch.zeros(B, dtype=torch.int64, device=dev),
+                torch.zeros(B, dtype=torch.bool, device=dev))
+    t = torch.empty(B, dtype=torch.int64, device=dev)
+    has = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch("binseg_l2", dev, y_int.data_ptr(), W, B, n_windows.data_ptr(), jump, min_size,
+            t.data_ptr(), has.data_ptr())
+    return t, has
+
+
+def sum_boundary_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                       n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
+                       L: int, lean: bool, jump: int = 5, min_size: int = 2):
+    """sum_boundary's plain torch version: sum_signal_plain, then
+    ops.changepoint.binseg_l2_device.  Runs on any device."""
+    y = sum_signal_plain(codes_wire, aux, table, k=k, window_size=window_size,
+                         slide=slide, L=L, lean=lean)
+    return binseg_l2_device(y, n_windows, jump=jump, min_size=min_size)
+
+
+def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                 n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
+                 L: int, lean: bool, jump: int = 5, min_size: int = 2):
+    """Step 2 for aperiodic tables in one launch: the window signal of
+    sum_signal and, in the same block, its exact changepoint, so only
+    (t [B] int64, has [B] bool) reach device memory.  Wire and table as
+    for sum_signal; n_windows [B] int32 valid-window counts.
+    Bit-identical to sum_boundary_plain."""
+    _check_sum_table("sum_boundary", table, k)
+    if codes_wire.device.type == "cpu":
+        return sum_boundary_plain(codes_wire, aux, table, n_windows, k=k,
+                                  window_size=window_size, slide=slide, L=L, lean=lean,
+                                  jump=jump, min_size=min_size)
+    dev = _check_wire("sum_boundary", codes_wire, aux, table, L, lean)
+    _check(n_windows, "n_windows", torch.int32, 1, dev)
+    B = codes_wire.shape[0]
+    if n_windows.shape[0] != B:
+        raise ValueError(f"n_windows {tuple(n_windows.shape)} does not match batch {B}")
+    if jump < 1 or min_size < 1:
+        raise ValueError(f"sum_boundary takes jump >= 1 and min_size >= 1, got {jump}, "
+                         f"{min_size}")
+    J = window_size - k
+    W = num_windows(L, window_size, slide)
+    if J <= 0 or W == 0 or B == 0:
+        # no k-mer fits a window: the signal is all zeros
+        return binseg_l2(torch.zeros((B, W), dtype=torch.int32, device=dev), n_windows,
+                         jump, min_size)
+    t = torch.empty(B, dtype=torch.int64, device=dev)
+    has = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch("sum_boundary", dev,
+            *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
+            n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
+    return t, has
 
 
 # ---- greedy_signal and greedy_counts ---------------------------------------
@@ -313,9 +413,11 @@ def greedy_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.zeros((B, K, W), dtype=torch.int32, device=dev)
     tile, smem = tile_geometry(k, slide, J, W, pos_bytes=5, win_bytes=4)
-    return _launch("greedy_counts", torch.empty((B, K, W), dtype=torch.int32, device=dev),
-                   codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L,
-                   lean=lean, tile=tile, smem=smem)
+    out = torch.empty((B, K, W), dtype=torch.int32, device=dev)
+    _launch("greedy_counts", dev,
+            *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
+            tile, smem, out.data_ptr())
+    return out
 
 
 def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
@@ -337,6 +439,8 @@ def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.full((B, W), K, dtype=torch.int32, device=dev)
     tile, smem = tile_geometry(k, slide, J, W, pos_bytes=5, win_bytes=4)
-    return _launch("greedy_signal", torch.empty((B, W), dtype=torch.int32, device=dev),
-                   codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L,
-                   lean=lean, tile=tile, smem=smem)
+    out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    _launch("greedy_signal", dev,
+            *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
+            tile, smem, out.data_ptr())
+    return out

@@ -1,11 +1,11 @@
 """TorchEngine: the topsicle_tpu streaming engine on torch devices.
 
-It inherits the host pipeline of topsicle_tpu.pipeline.JaxEngine, which
-is framework-free: block parsing and the encoded-block cache, the
-step-1 stream with host f64 TRC selection, step-2 batching with two
-batches in flight, subset emission, resume.  It replaces what touches
-JAX: the models, warmup, precompile, global mode's lockstep loop and
-`run`, whose JAX version imports the jax-backed `parallel` package.  Its
+The host pipeline is the port's own copy of the framework-free half of
+topsicle_tpu/pipeline.py::JaxEngine, method for method: block parsing
+and the encoded-block cache, the step-1 stream with host f64 TRC
+selection, step-2 batching with two batches in flight, subset emission,
+resume.  What touched JAX there is the port's own here: the models,
+warmup, precompile, global mode's lockstep loop and `run`.  Its
 CSV, subset files and aggregate lines are byte-identical to JaxEngine's,
 and so are the --rawcountpattern CSVs and the names of the --plot PNGs,
 in every mode:
@@ -25,32 +25,31 @@ The one case the port refuses is --kernel xla: it has no XLA path.
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
 import os
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from topsicle_tpu import aggregate
-from topsicle_tpu.config import TopsicleConfig
-from topsicle_tpu.io import batch as batching
-from topsicle_tpu.io import blockcache, reader, writer
-from topsicle_tpu.kmers import patterns_to_search
-from topsicle_tpu.oracle.reference import ReadResult
-from topsicle_tpu.pipeline import JaxEngine, _Passer
-from topsicle_tpu.utils.manifest import RunManifest
-from topsicle_tpu.utils.profiling import StageTimers
-from topsicle_tpu_torch import ops
+from topsicle_tpu_torch import aggregate, ops
+from topsicle_tpu_torch.config import TopsicleConfig
 from topsicle_tpu_torch.device import describe
+from topsicle_tpu_torch.io import batch as batching
+from topsicle_tpu_torch.io import blockcache, reader, writer
+from topsicle_tpu_torch.kmers import patterns_to_search
 from topsicle_tpu_torch.models.oracle_model import OracleScanModel
 from topsicle_tpu_torch.models.telomere import (TorchScanModel, _batch_is_clean,
                                                 resolve_kernel)
 from topsicle_tpu_torch.ops import cuda_kernels
+from topsicle_tpu_torch.oracle.reference import ReadResult
 from topsicle_tpu_torch.parallel import distributed
 from topsicle_tpu_torch.parallel.mesh import local_devices
 from topsicle_tpu_torch.parallel.multihost import GlobalScanModel, or_across_processes
 from topsicle_tpu_torch.parallel.sharding import ShardedScanModel
+from topsicle_tpu_torch.utils.manifest import RunManifest
+from topsicle_tpu_torch.utils.profiling import StageTimers, trace_context
 
 
 def refuse_unported(cfg: TopsicleConfig) -> None:
@@ -61,35 +60,70 @@ def refuse_unported(cfg: TopsicleConfig) -> None:
     resolve_kernel(cfg.use_pallas)
 
 
-@contextlib.contextmanager
-def torch_trace(trace_dir: Optional[str], device: torch.device):
-    """--traceDir: a torch.profiler trace of the run (CPU and, on a card,
-    CUDA activity) written as <trace_dir>/trace.json."""
-    if not trace_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+@dataclasses.dataclass
+class _Passer:
+    order: int
+    read_id: str
+    kmer: str
+    tail: str
+    trc: float
+    tail_codes: np.ndarray       # step-2 scan slice (already oriented)
+    seq_len: int
+    clean: bool = True           # tail is pure ACGT (lean wire eligible);
+                                 # precomputed so global mode's lockstep
+                                 # control word needs no batch assembly
 
 
-class TorchEngine(JaxEngine):
+class TorchEngine:
     """The engine on torch devices: 'cuda' computes on every card this
     process sees (batches split by rows when there are several), 'cpu'
     on the CPU, a torch.device on that device alone."""
 
     def __init__(self, cfg: TopsicleConfig, log: Optional[writer.RunLog] = None,
                  device: str | torch.device = "cuda"):
-        super().__init__(cfg, log)
+        import threading
+
+        cfg.validate()
         refuse_unported(cfg)
+        self.cfg = cfg
+        self.log = log or writer.RunLog(cfg.output_dir if cfg.output_dir else None, echo=False)
+        self._models: Dict[int, object] = {}
+        # Encoded-block cache: multi-telophrase runs parse each input
+        # once and replay engine-native blocks for later phrases
+        # (io/blockcache.py; the reference re-reads per k, main.py:206)
+        self._bc_lock = threading.Lock()
+        self._bc_enabled = (len(cfg.telophrases()) > 1
+                            and blockcache.cache_budget_bytes() > 0)
+        self._bc_left = blockcache.cache_budget_bytes() if self._bc_enabled else 0
+        self._bc_write = self._bc_enabled   # run() clears this for the
+                                            # final phrase (nothing would
+                                            # ever read those entries)
+        self._bc_skip: set = set()          # files that exhausted the budget
+        # Device batch size (cfg.batch_size rounded up to a mesh
+        # multiple when >1 device is visible), set by _model.  Kept
+        # engine-local: cfg stays immutable under the caller — bench.py
+        # holds one engine across runs, and a config object changing as
+        # a side effect invites aliasing bugs (VERDICT r4 weak item 6).
+        self._device_batch: Optional[int] = None
         self.devices = [device] if isinstance(device, torch.device) else local_devices(device)
         self.device = self.devices[0]
+
+    @property
+    def _B(self) -> int:
+        """The engine's device batch size (>= cfg.batch_size; parse
+        blocks stay cfg.batch_size-sized and pad up to this)."""
+        return self._device_batch or self.cfg.batch_size
+
+    def _bc_reserve(self, n: int) -> bool:
+        with self._bc_lock:
+            if self._bc_left >= n:
+                self._bc_left -= n
+                return True
+            return False
+
+    def _bc_refund(self, n: int) -> None:
+        with self._bc_lock:
+            self._bc_left += n
 
     # -- models ------------------------------------------------------------
     def _model(self, phrase: int, kmers: Sequence[str]):
@@ -129,6 +163,416 @@ class TorchEngine(JaxEngine):
                 continue
             self.log(f"precompile: k={phrase} ready on {describe(model.device)}")
         return 1 if self.device.type == "cuda" else 0
+
+    # -- step 1 ------------------------------------------------------------
+    def _select_hits(self, counts: np.ndarray, cutoff: float
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Host-side f64 TRC selection from device counts [B, 2, K],
+        fully vectorized (no per-read Python loop): per-end argmax
+        (numpy argmax = first-of-equals in table order, matching Python
+        max(), allsteps.py:190-193), forward only on strict '>', keep on
+        strict TRC > cutoff.  Returns (keep [B] bool, kmer_idx [B],
+        is_forward [B] bool, trc [B] f64)."""
+        ratio = self.cfg.no_bp / len(self.cfg.pattern)
+        js = np.argmax(counts[:, 0, :], axis=1)
+        je = np.argmax(counts[:, 1, :], axis=1)
+        b = np.arange(counts.shape[0])
+        trc_s = counts[b, 0, js].astype(np.float64) / ratio
+        trc_e = counts[b, 1, je].astype(np.float64) / ratio
+        fwd = trc_s > trc_e
+        trc = np.where(fwd, trc_s, trc_e)
+        sel_j = np.where(fwd, js, je)
+        return trc > cutoff, sel_j, fwd, trc
+
+    def _use_native(self) -> bool:
+        if self.cfg.native_io is False:
+            return False
+        try:
+            from topsicle_tpu_torch.native import native_available
+        except Exception:
+            return False
+        ok = native_available()
+        if self.cfg.native_io is True and not ok:
+            raise RuntimeError("native_io requested but the C++ IO library is unavailable")
+        return ok
+
+    def _iter_blocks(self, path: str):
+        """Blocks of up to batch_size eligible reads, with the
+        encoded-block cache wrapped around the raw parse: a
+        multi-phrase run's later phrases replay the first parse's
+        blocks from disk (~10x faster than re-inflating), and the
+        cache entry only becomes visible after a COMPLETE successful
+        parse (a failed file caches nothing)."""
+        from topsicle_tpu_torch.io import blockcache
+        from topsicle_tpu_torch.native.loader import Block
+
+        cfg = self.cfg
+        if self._bc_enabled:
+            cached = blockcache.open_cached_blocks(
+                cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size)
+            if cached is not None:
+                try:
+                    for ids, codes, offs in cached:
+                        yield Block(ids, codes, offs)
+                    return
+                except Exception as e:
+                    # an entry corrupted/truncated after commit must not
+                    # kill the run NOR poison the retry: drop it (and
+                    # refund its kept budget reservation), fail the unit
+                    # like any unreadable input (resume re-parses fresh)
+                    self._bc_refund(
+                        blockcache.drop_entry(cfg.output_dir, path))
+                    raise reader.InputFileError(path, e) from e
+        bc = None
+        # the _bc_left read is an unlocked fast-path gate (exactness is
+        # enforced by the per-record reservation): once the budget is
+        # gone, new files skip writer construction and the per-block
+        # pickling entirely
+        if (self._bc_write and path not in self._bc_skip
+                and self._bc_left > 0):
+            bc = blockcache.BlockCacheWriter(
+                cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size,
+                self._bc_reserve, self._bc_refund)
+        try:
+            for blk in self._parse_blocks(path):
+                if bc is not None and bc.active:
+                    bc.add(blk.ids, blk.codes, blk.offs)
+                yield blk
+            if bc is not None:
+                if bc.commit() == 0:
+                    # budget exhausted (or IO failure): do not retry
+                    # this file's cache in later phrases
+                    self._bc_skip.add(path)
+                bc = None
+        finally:
+            if bc is not None:   # error or abandoned generator
+                bc.abandon()
+
+    def _parse_blocks(self, path: str):
+        """Raw parse: blocks of up to batch_size eligible reads (len >
+        minSeqLength) — one flat code array + offsets per block, via the
+        C++ loader when available (gzip inflate + parse + encode in one
+        native pass), else the pure-Python reader.  Block granularity
+        keeps the host path vectorized end-to-end (no per-read slice/
+        copy/queue work).  Read-level failures (truncated gzip,
+        malformed records) surface as InputFileError so the run can skip
+        the file instead of dying."""
+        from topsicle_tpu_torch.native.loader import Block
+
+        cfg = self.cfg
+        Bblk = cfg.batch_size
+        try:
+            if self._use_native():
+                from topsicle_tpu_torch.native import NativeReader
+
+                rd = NativeReader(path, cfg.min_seq_length, batch_reads=Bblk)
+                try:
+                    yield from rd.iter_blocks()
+                finally:
+                    rd.close()
+                return
+            ids: List[str] = []
+            chunks: List[np.ndarray] = []
+            offs = [0]
+            for rec in reader.parse_records(path):
+                if len(rec.seq) > cfg.min_seq_length:
+                    c = batching.encode_read(rec.seq)
+                    ids.append(rec.id)
+                    chunks.append(c)
+                    offs.append(offs[-1] + len(c))
+                    if len(ids) >= Bblk:
+                        yield Block(ids, np.concatenate(chunks),
+                                    np.asarray(offs, np.int64))
+                        ids, chunks, offs = [], [], [0]
+            if ids:
+                yield Block(ids, np.concatenate(chunks),
+                            np.asarray(offs, np.int64))
+        except (OSError, EOFError, UnicodeDecodeError, ValueError, MemoryError,
+                zlib.error) as e:
+            raise reader.InputFileError(path, e) from e
+
+    def _read_source(self, path: str):
+        """Eager background parse/encode of one file, bounded by ~2
+        blocks (= ~2 device batches) of reads (utils.prefetch.Prefetcher
+        starts immediately, so sources created ahead overlap the current
+        file's device work — the reference's --threads fan-out, as a
+        reader pool)."""
+        from topsicle_tpu_torch.utils.prefetch import Prefetcher
+
+        return Prefetcher(self._iter_blocks(path), depth=2)
+
+    def _step1_stream(self, path: str, kmers: Sequence[str], model,
+                      source=None, timers=None):
+        """Streaming step 1: a generator of _Passer in input order, with
+        batches kept in flight — the device computes block i while the
+        host parses/encodes block i+1.  One block = one device batch;
+        ends assembly and TRC selection are vectorized over the whole
+        block (no per-read host loop on the hot path — only passing
+        reads touch Python, for tail slicing).  Yielding (instead of
+        round 3's materialized list) lets the caller pipeline step 2
+        behind step 1 with O(batch) peak memory: a monolithic
+        whole-genome file no longer accumulates every passing read's
+        tail slice (~20 kB each) before the first boundary runs."""
+        import contextlib
+
+        cfg = self.cfg
+        cutoff = cfg.min_cutoff()
+        B = self._B
+        depth = 2
+        pending = []  # [(order0, block, device_counts)]
+        stage = (lambda: timers.stage("step1")) if timers is not None \
+            else contextlib.nullcontext
+
+        def drain_one():
+            order0, blk, fut = pending.pop(0)
+            counts = np.asarray(fut)[: len(blk)]
+            keep, sel_j, fwd, trc = self._select_hits(counts, cutoff)
+            offs = blk.offs
+            out = []
+            for i in np.nonzero(keep)[0]:
+                i = int(i)
+                codes = blk.codes[offs[i]:offs[i + 1]]
+                tail = "forward" if fwd[i] else "reverse"
+                out.append(
+                    _Passer(
+                        order0 + i, blk.ids[i], kmers[int(sel_j[i])], tail,
+                        float(trc[i]),
+                        # .copy(): drop the reference into the block's
+                        # flat buffer so non-passing reads are freed
+                        batching.extract_tail(
+                            codes, tail, cfg.trimfirst, cfg.maxlengthtelo
+                        ).copy(),
+                        int(offs[i + 1] - offs[i]),
+                    )
+                )
+            return out
+
+        # parse/encode ahead on a reader thread (bounded by ~2 blocks)
+        if source is None:
+            source = self._read_source(path)
+        order = 0
+        for blk in source:
+            with stage():
+                n = len(blk)
+                ends, ends_len_blk = batching.ends_batch_flat(
+                    blk.codes, blk.offs, cfg.no_bp)
+                ends_len = np.zeros(B, np.int32)
+                ends_len[:n] = ends_len_blk
+                if n < B:  # pad to the static batch shape
+                    pad = np.full((B - n, 2, cfg.no_bp), 0xFF, np.uint8)
+                    ends = np.concatenate([ends, pad], axis=0)
+                pending.append(
+                    (order, blk, model.step1_counts_launch(ends, ends_len)))
+                order += n
+                drained = drain_one() if len(pending) > depth else []
+            yield from drained
+        while pending:
+            with stage():
+                drained = drain_one()
+            yield from drained
+
+    def _step1_file(self, path: str, kmers: Sequence[str], model,
+                    source=None) -> List[_Passer]:
+        """Materialized _step1_stream (the --read_check debug path and
+        the benchmarks use this form)."""
+        return list(self._step1_stream(path, kmers, model, source=source))
+
+    # -- subset emission ---------------------------------------------------
+    def _write_subset(self, path: str, hit_ids: set) -> None:
+        cfg = self.cfg
+        out_path = writer.subset_path(cfg.output_dir, path, cfg.min_cutoff())
+        if os.path.exists(out_path):
+            self.log(f"Temporary fasta file already exists: {out_path}. Using existing file.")
+            return
+        fmt = reader.extension_format(path)
+        # write to a temp name + atomic rename: a failed/killed write must
+        # not leave a truncated subset that a later k / --resume would
+        # silently reuse as complete (the exists-check above)
+        tmp_path = out_path + ".tmp"
+        try:
+            if self._use_native():
+                from topsicle_tpu_torch.native import write_subset_native
+
+                write_subset_native(path, tmp_path, sorted(hit_ids), fmt == "fastq")
+            else:
+                with open(tmp_path, "w") as fh:
+                    for rec in reader.parse_records(path):
+                        if rec.id in hit_ids:
+                            writer.write_record(fh, rec, fmt)
+            os.replace(tmp_path, out_path)
+        except (OSError, EOFError, UnicodeDecodeError, ValueError, zlib.error) as e:
+            if os.path.exists(tmp_path):
+                try:
+                    os.remove(tmp_path)
+                except OSError:
+                    pass
+            raise reader.InputFileError(path, e) from e
+        self.log(f"Temporary fasta file with TRC more than {cfg.min_cutoff()}:", out_path)
+
+    # -- step 2 ------------------------------------------------------------
+    def _step2_batches(self, passers, model, timers=None):
+        """Consume an iterable of _Passer (list OR the _step1_stream
+        generator) and yield (sub-list of passers, boundaries,
+        (raw_future, n_windows) or None) in order, keeping up to 2
+        device batches in flight ahead of the consumer.  With a
+        generator input, step-2 batches launch while step 1 is still
+        scanning later blocks — the two stages overlap on device and
+        peak host memory stays O(batch).
+
+        When per-read extras are wanted (--plot/--rawcountpattern) and
+        the model supports the shared-pack API, the rawcounts program
+        launches on the SAME packed wire arrays as the boundary — one
+        host pack, lean wire when clean, and the [B, K, W] tensor
+        pipelines with everything else instead of a packed-again
+        synchronous re-run per batch (VERDICT r3 item 6)."""
+        import contextlib
+        import itertools
+
+        cfg = self.cfg
+        B = self._B
+        depth = 2
+        stage = (lambda: timers.stage("step2")) if timers is not None \
+            else contextlib.nullcontext
+        want_extras = (cfg.plot or cfg.rawcountpattern) and \
+            hasattr(model, "pack_scan_batch")
+
+        def launch(group):
+            # "static" scan mode pads every batch to one L so the whole
+            # run uses ONE compiled step-2 program (remote TPU compile
+            # services charge seconds..minutes per new program shape)
+            pad_len = cfg.static_scan_length() or max(
+                len(p.tail_codes) for p in group)
+            codes, lens = batching.tails_batch(
+                [p.tail_codes for p in group], pad_len, cfg.length_bucket_quantum
+            )
+            if len(group) < B:
+                pad = np.full((B - len(group), codes.shape[1]), 0xFF, np.uint8)
+                codes = np.concatenate([codes, pad], axis=0)
+                lens = np.concatenate([lens, np.zeros(B - len(group), np.int32)])
+            n_windows = batching.window_counts_for_lengths(lens, cfg.window_size, cfg.slide_value())
+            if want_extras:
+                # pack once; both programs ride the same device arrays
+                # (the boundary takes the XLA path here — bit-identical
+                # to the Pallas variant, property-tested)
+                packed = model.pack_scan_batch(codes, lens)
+                fut = model.step2_boundary_launch_packed(packed, n_windows)
+                raw = model.rawcounts_launch_packed(packed)
+                return fut, (raw, n_windows)
+            return model.step2_boundary_launch(codes, n_windows, lens), None
+
+        def consume(group, fut, extras):
+            t, has = (np.asarray(x) for x in fut)
+            bounds = []
+            for j, p in enumerate(group):
+                maxc = min(cfg.maxlengthtelo, p.seq_len)
+                b = int(cfg.trimfirst + cfg.slide_value() * int(t[j])) if has[j] else 0
+                if b == 0 or b > maxc:
+                    b = 0
+                bounds.append(b)
+            return group, bounds, extras
+
+        it = iter(passers)
+        inflight = []
+        while True:
+            # pulling the next group advances _step1_stream (its time
+            # lands in the step1 stage, not here)
+            group = list(itertools.islice(it, B))
+            if group:
+                with stage():
+                    inflight.append((group, *launch(group)))
+            if (group and len(inflight) > depth) or (not group and inflight):
+                g, f, e = inflight.pop(0)
+                with stage():      # the device wait; row emission happens
+                    res = consume(g, f, e)     # in the consumer, unstaged
+                yield res
+            if not group and not inflight:
+                return
+
+    # -- optional per-read outputs (--plot / --rawcountpattern) ------------
+    def _per_read_extras(self, group: List[_Passer], model, phrase: int,
+                         bounds: List[int], image_start: int,
+                         extras=None) -> None:
+        """`extras` is the (raw_future, n_windows) pair pre-launched by
+        _step2_batches on the boundary batch's own packed arrays; when
+        None (global-mode rebatching, oracle-model fallback) the batch
+        is packed here — once, lean when clean — and launched fresh."""
+        cfg = self.cfg
+        if not (cfg.plot or cfg.rawcountpattern):
+            return
+        if extras is None:
+            B = self._B
+            pad_len = cfg.static_scan_length() or max(len(p.tail_codes) for p in group)
+            codes, lens = batching.tails_batch(
+                [p.tail_codes for p in group], pad_len, cfg.length_bucket_quantum
+            )
+            if len(group) < B:
+                pad = np.full((B - len(group), codes.shape[1]), 0xFF, np.uint8)
+                codes = np.concatenate([codes, pad], axis=0)
+                lens = np.concatenate([lens, np.zeros(B - len(group), np.int32)])
+            n_windows = batching.window_counts_for_lengths(
+                lens, cfg.window_size, cfg.slide_value())
+            if hasattr(model, "pack_scan_batch"):
+                raw_fut = model.rawcounts_launch_packed(
+                    model.pack_scan_batch(codes, lens))
+            else:
+                raw_fut = model.rawcounts(codes)   # host oracle model
+        else:
+            raw_fut, n_windows = extras
+        raw = np.asarray(raw_fut)             # [B, K, W]
+        for j, p in enumerate(group):
+            num = image_start + j
+            nw = int(n_windows[j])
+            counts = np.maximum(raw[j, :, :nw], 1)     # or-1 floor
+            if cfg.rawcountpattern:
+                self._write_rawcount(p, model, counts, phrase, num)
+            if cfg.plot:
+                from topsicle_tpu_torch.plots import changepoint_plot
+
+                starts = np.arange(nw) * cfg.slide_value() + cfg.trimfirst
+                means = counts.sum(axis=0) / counts.shape[0]
+                out = os.path.join(cfg.output_dir, f"plot_{phrase}_{num}.png")
+                changepoint_plot(
+                    starts, means, bounds[j], p.read_id, out,
+                    xlim=cfg.rangecp or min(cfg.maxlengthtelo, p.seq_len),
+                )
+
+    def _remove_unit_extras(self, phrase: int, image_end: int) -> None:
+        """Delete the per-read extras files (rawcount CSVs / plot PNGs)
+        a failed unit already emitted, numbers 1..image_end-1: a skipped
+        unit must contribute nothing (PARITY.md deviation 7), and the
+        streamed pipeline writes extras before the unit is known to
+        complete."""
+        cfg = self.cfg
+        if not (cfg.plot or cfg.rawcountpattern):
+            return
+        for n in range(1, image_end):
+            for name in (f"rawcount_{phrase}_{n}.csv", f"plot_{phrase}_{n}.png"):
+                try:
+                    os.remove(os.path.join(cfg.output_dir, name))
+                except OSError:
+                    pass
+
+    def _write_rawcount(self, p: _Passer, model, counts: np.ndarray,
+                        phrase: int, num: int) -> None:
+        """rawcount_{phrase}_{num}.csv — rows (tail, window start,
+        kmer, count-or-1), window-major, unlabeled index column
+        (allsteps.py:359-464).  Written with pandas.to_csv exactly like
+        the reference (main.py:146-150): same LF line endings (the
+        committed demo artifact's — csv.writer's CRLF diverged), and
+        vectorized (a 20 kb read emits ~46k rows; a Python row loop was
+        the dominant cost of --rawcountpattern runs)."""
+        import pandas as pd
+
+        path = os.path.join(self.cfg.output_dir, f"rawcount_{phrase}_{num}.csv")
+        K, nw = counts.shape
+        df = pd.DataFrame({
+            "tail": np.repeat(p.tail, nw * K),
+            "position": np.repeat(np.arange(nw) * self.cfg.slide_value(), K),
+            "pattern": np.tile(np.asarray(model.kmers, dtype=object), nw),
+            "count": counts.T.reshape(-1),
+        })
+        df.to_csv(path)
+
 
     # -- one (file, phrase) unit ---------------------------------------------
     def _run_unit(self, path: str, phrase: int, kmers: Sequence[str], model, src,
@@ -189,7 +633,7 @@ class TorchEngine(JaxEngine):
 
         def fn(trc, telo, vx, vy, coeffs):
             try:
-                from topsicle_tpu.plots import quadfit_plot
+                from topsicle_tpu_torch.plots import quadfit_plot
 
                 out = os.path.join(cfg.output_dir, f"quadfit_{phrase}mer_{cfg.pattern}.png")
                 quadfit_plot(trc, telo, vx, vy, coeffs, out)
@@ -423,6 +867,62 @@ class TorchEngine(JaxEngine):
                 self._remove_unit_extras(phrase, extras_done.get(file_idx, 1))
         return rows, failed
 
+    def _emit_kept_unit(self, csv_path: str, lbl: str, phrase: int, path: str,
+                        manifest, kept_rows: Dict[tuple, List[tuple]],
+                        results: List[ReadResult],
+                        phrase_to_telo: Dict[int, List[float]],
+                        phrase_to_trc: Dict[int, List[float]]) -> None:
+        """Re-emit a resume-completed unit's rows at its canonical
+        phrase x file position (original trc strings, full-precision
+        manifest TRCs for the aggregates) so a resumed run's CSV and
+        aggregate lists are byte-identical to an uninterrupted run's.
+        Pops the unit from kept_rows so a second same-label file never
+        re-writes it."""
+        unit_rows = kept_rows.pop((lbl, phrase), [])
+        full_trcs = manifest.trcs_for(path, phrase)
+        if full_trcs is not None and len(full_trcs) != len(unit_rows):
+            full_trcs = None    # stale manifest payload
+        for i, (rid, trc, telo) in enumerate(unit_rows):
+            writer.append_csv_row_raw(csv_path, [lbl, phrase, trc, rid, telo])
+            ftrc = full_trcs[i] if full_trcs is not None else float(trc)
+            results.append(ReadResult(lbl, phrase, rid, ftrc, telo))
+            phrase_to_telo.setdefault(phrase, []).append(float(telo))
+            phrase_to_trc.setdefault(phrase, []).append(ftrc)
+
+    # -- resume support ----------------------------------------------------
+    def _prepare_resume(self, csv_path: str):
+        """Load the manifest + existing CSV; keep rows belonging to
+        completed (file, phrase) units, drop rows of interrupted units
+        (they will be recomputed).  Kept rows are NOT written here —
+        the run loop re-emits each unit's rows at its canonical position
+        in the phrase x file iteration, so a resumed run's CSV is
+        byte-identical to an uninterrupted run's (SURVEY.md §7.2.6
+        deterministic global ordering).  Returns (manifest, kept_rows)
+        where kept_rows maps (label, phrase) -> [(read_id, trc_str,
+        telo)] in original CSV order."""
+        import csv as _csv
+
+        from topsicle_tpu_torch.utils import RunManifest
+
+        manifest = RunManifest(self.cfg.output_dir)
+        done_labels = set()
+        for phrase in self.cfg.telophrases():
+            for path in self.cfg.input_paths():
+                if manifest.is_done(path, phrase):
+                    done_labels.add((writer.file_label(path), phrase))
+        kept: Dict[tuple, List[tuple]] = {}
+        if os.path.exists(csv_path):
+            with open(csv_path, newline="") as fh:
+                rows = list(_csv.reader(fh))
+            body = [r for r in rows[1:] if len(r) == 5]
+            for lbl, ph, trc, rid, telo in body:
+                key = (lbl, int(ph))
+                if key in done_labels:
+                    kept.setdefault(key, []).append((rid, trc, int(telo)))
+        writer.write_csv_header(csv_path)
+        return manifest, kept
+
+
     # -- full run ------------------------------------------------------------
     def run(self) -> List[ReadResult]:
         cfg = self.cfg
@@ -431,6 +931,8 @@ class TorchEngine(JaxEngine):
         csv_path = os.path.join(cfg.output_dir, "telolengths_all.csv")
         self.log(f"Output will be here: {csv_path}")
         self.log(f"device: {', '.join(describe(d) for d in self.devices)}")
+        self.log("reader: " + ("native C++ (native/tsio.cc)" if self._use_native()
+                               else "python (io/reader.py)"))
 
         pid, nproc = distributed.process_identity(cfg.process_id, cfg.process_count)
         dist = nproc > 1
@@ -509,7 +1011,7 @@ class TorchEngine(JaxEngine):
             return True
 
         phrases = cfg.telophrases()
-        with torch_trace(cfg.trace_dir, self.device):
+        with trace_context(cfg.trace_dir, cuda=self.device.type == "cuda"):
             for phrase_i, phrase in enumerate(phrases):
                 # the last phrase's parse is never replayed: no cache writes
                 self._bc_write = self._bc_enabled and phrase_i != len(phrases) - 1
@@ -578,3 +1080,14 @@ class TorchEngine(JaxEngine):
                                 log=self.log, plot_fn_for_phrase=self._quadfit_plot)
         self.log("All telomere found, have a nice day.")
         return results
+
+
+def make_engine(cfg: TopsicleConfig, log: Optional[writer.RunLog] = None,
+                device: str | torch.device = "cuda"):
+    """Engine factory honoring cfg.engine ('jax', the reference CLI's name
+    for the device engine: here TorchEngine on `device`; or 'oracle')."""
+    if cfg.engine == "oracle":
+        from topsicle_tpu_torch.oracle import OracleEngine
+
+        return OracleEngine(cfg, log=log)
+    return TorchEngine(cfg, log=log, device=device)

@@ -1,0 +1,5 @@
+"""Runtime utilities: stage profiling, throughput counters, run
+manifest, bounded read-ahead."""
+
+from topsicle_tpu_torch.utils.profiling import StageTimers, trace_context  # noqa: F401
+from topsicle_tpu_torch.utils.manifest import RunManifest  # noqa: F401
