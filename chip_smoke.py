@@ -26,29 +26,40 @@ line is printed):
                       y (every candidate ties: the smallest t), a
                       [4, 131080] y (the plain version's two-limb range)
                       and y up to 2**30 (A**2 past 64 bits)
-       greedy_signal and greedy_counts: CCCTAAA k = 7 (8 of 14 entries
-                      periodic) on the lean and dense (2% invalid) wires,
-                      CCCTAA k = 5, CCCTAAA k = 3, a K = 40 table with
-                      duplicates, slide 1 / window 20 / k 7; y_int,
-                      [B, K, W] counts and (t, has); and greedy_counts at
-                      step 1's shape, [256, 1000] ends
+       greedy_signal, greedy_counts and greedy_boundary (one body: match
+                      planes, find-first-set, the changepoint behind it):
+                      CCCTAAA k = 7 (8 of 14 entries self-overlapping) on
+                      the lean and dense (2% invalid) wires, CCCTAA k = 5,
+                      CCCTAAA k = 3, a K = 40 table with duplicates and a
+                      K = 120 one (the table in two groups of planes),
+                      slide 1 / window 20 / k 7, AAAAAAA on reads that
+                      are one run of A's, window 72 / slide 31 (a window's
+                      bits straddle three plane words), window 200
+                      (J > 96); y_int, [B, K, W] counts and (t, has)
+       step1_counts:  [256, 1000] ends (rows of 1000, 0, 3 and k bases and
+                      a run of A's among them) on both wires at CCCTAAA
+                      k = 7 and k = 5, AAAAAAA, K = 33 (a second round of
+                      entries) and K = 40
      and the sharded caller: ShardedScanModel over [cuda:0, cuda:0] (two
      shards on the one card, the only split it allows) against one
-     TorchScanModel, bit for bit, at k = 5 and 7: step 1, step 2 on the
-     lean and dense wires at B = 128 x L = 19968, the packed API and
-     rawcounts, each shard launching its kernel (the counts double); and
-     a handle that syncs on its own card's stream
+     TorchScanModel, bit for bit, at k = 5 and 7: step 1 (step1_counts
+     through two shards), step 2 on the lean and dense wires at B = 128 x
+     L = 19968, the packed API and rawcounts, each shard launching its
+     kernel (the counts double); and a handle that syncs on its own
+     card's stream
   4. end to end: a seeded 4,096-read gzipped FASTQ (~58 Mbp) through the
-     port's CLI on the card, four paths, each with the launch counts set
+     port's CLI on the card, five paths, each with the launch counts set
      to 0 just before it and read just after:
-       k = 5 (auto: the fused sum kernel, sum_boundary), --telophrase 7 (a
-       mixed table: the greedy kernel in steps 1 and 2, then binseg_l2),
-       --kernel greedy at k = 5 (greedy_signal, then binseg_l2) and
-       --kernel sum at k = 5 (sum_signal, then binseg_l2); each run's
-       telolengths_all.csv (and subset FASTQ) must match the port's
-       pure-Python OracleEngine at that k byte for byte, each path must
-       have launched exactly the kernels it runs, and the plain torch
-       changepoint must have run 0 times on the card
+       k = 5 (auto: step1_counts and the fused sum kernel, sum_boundary),
+       --telophrase 7 (a mixed table: step1_counts and the fused greedy
+       kernel, greedy_boundary), --kernel greedy at k = 5 (greedy_signal,
+       then binseg_l2), --kernel sum at k = 5 (sum_signal, then
+       binseg_l2), and --telophrase 7 --rawcountpattern on the 256-read
+       file of the multi-process inputs (greedy_counts too); each run's
+       CSVs (and subset FASTQ) must match the port's pure-Python
+       OracleEngine at that k byte for byte, each path must have launched
+       exactly the kernels it runs, and the plain torch changepoint and
+       the plain step 1 must have run 0 times on the card
      then processes, each a CLI started with --device cuda that prints
      its launch counts (which must not be 0): on four seeded files of
      1,024 / 512 / 256 / 256 reads, one process (outputs byte-identical
@@ -62,13 +73,15 @@ line is printed):
      queued behind a matrix product so that they run back to back), each
      kernel's bound (bytes over the card's memory rate or the integer
      operations its function needs over the card's INT32 rate, whichever
-     is larger, from this run's inputs), the step-2 launch paths (one
+     is larger, from this run's inputs; a kernel faster than its bound
+     fails the run: the count would be wrong), the step-2 launch paths (one
      model and two shards), and the end-to-end wall times, the
      multi-process ones included (on one card: process overhead)
 
-`python3 chip_smoke.py --sum-signal-of DIR` runs none of this: it times the
-sum_signal entry of the checkout at DIR by phase 5's two methods and prints
-one line, so that two commits' kernels can be read in one call.
+`python3 chip_smoke.py --times-of DIR` runs none of this: it times the
+sum_signal and greedy_signal entries and the step-1 count of the checkout
+at DIR, through DIR's own wrappers, by phase 5's two methods and prints a
+line each, so that two commits' kernels can be read in one call.
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -99,6 +112,7 @@ def _reads(rng, B, L, pattern="CCCTAAA", noise=0.05):
 
 
 FILE_READS = (1024, 512, 256, 256)     # phase 4's skewed four-file directory
+RAW_FILE, RAW_READS = "part2.fastq.gz", FILE_READS[2]   # the --rawcountpattern path's input
 K16_PATTERN, K16_PHRASES, K16_READS = "CCCTAAACC", [9, 16], 256
 K16_CUTOFF = 0.15      # 16-mers of a noisy 9-bp repeat keep TRC near 0.25
 MP_TIMEOUT = 300       # seconds a multi-process run may take
@@ -149,12 +163,13 @@ def _queued_ms(torch, fn, reps=20, rounds=7):
 
 
 def _bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the least time the card could take, the
-    larger of the bytes over its memory rate and the integer operations
-    the function needs over its INT32 rate."""
+    """(bound_ms, bound_by, bytes, operations): the least time the card
+    could take, the larger of the bytes over its memory rate and the
+    integer operations the function needs over its INT32 rate."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            int(n_bytes), int(n_ops))
 
 
 def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
@@ -210,45 +225,74 @@ def _start_oracle(repo, out, **cfg):
                                 stdout=log, stderr=subprocess.STDOUT)
 
 
-def _sum_signal_of(torch, root):
-    """`python3 chip_smoke.py --sum-signal-of DIR`: only the times of the
-    sum_signal entry of the checkout at DIR (this one, or another commit's
-    unpacked beside it), so that two bodies of the kernel are read by the
-    same two methods in one call.  Phase 5's batch: B = 128 x L = 19968,
-    CCCTAAA k = 5, lean wire, built here with numpy alone so that nothing
-    but the kernel's wrapper comes from DIR.  Prints one line; no result
-    line."""
+def _times_of(torch, root):
+    """`python3 chip_smoke.py --times-of DIR`: only the times of the
+    sum_signal entry, the greedy_signal entry and the step-1 count of the
+    checkout at DIR (this one, or another commit's unpacked beside it),
+    so that two bodies of a kernel are read by the same two methods in one
+    call.  Phase 5's batches: B = 128 x L = 19968, CCCTAAA k = 5 (sum) and
+    k = 7 (greedy), lean wire, and [256, 1000] ends at k = 7 and k = 5,
+    built here with numpy alone so that nothing but the kernels' wrappers
+    comes from DIR.  The step-1 count is DIR's step1_counts, or where DIR
+    has none its greedy_counts with one window over every offset.  Each
+    kernel is held against DIR's plain version first.  Prints a line a
+    kernel; no result line."""
     import numpy as np
 
     sys.path.insert(0, os.path.abspath(root))
     from topsicle_tpu_torch.ops import cuda_kernels
 
-    B, L, k = 128, 19968, 5
+    def pack(codes, lens):
+        bits = np.where(np.arange(codes.shape[1])[None, :] < lens[:, None], codes, 0) & 3
+        return (bits[:, 0::4] | bits[:, 1::4] << 2 | bits[:, 2::4] << 4
+                | bits[:, 3::4] << 6).astype(np.uint8)
+
+    def table(k):
+        doubled = "CCCTAAA" * 2
+        origin = sorted({doubled[i:i + k] for i in range(len(doubled) - k + 1)})
+        kmers = origin + [s.translate(str.maketrans("ACGT", "TGCA")) for s in origin]
+        return torch.tensor([sum("ACGT".index(c) << (2 * j) for j, c in enumerate(s))
+                             for s in kmers], dtype=torch.int32, device="cuda")
+
+    B, L = 128, 19968
     rng = np.random.default_rng(2024)
     codes = _reads(rng, B, L)
     lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
-    bits = np.where(np.arange(L)[None, :] < lens[:, None], codes, 0) & 3
-    packed = bits[:, 0::4] | bits[:, 1::4] << 2 | bits[:, 2::4] << 4 | bits[:, 3::4] << 6
-    doubled = "CCCTAAA" * 2
-    origin = sorted({doubled[i:i + k] for i in range(len(doubled) - k + 1)})
-    kmers = origin + [s.translate(str.maketrans("ACGT", "TGCA")) for s in origin]
-    table = [sum("ACGT".index(c) << (2 * j) for j, c in enumerate(s)) for s in kmers]
-    a = torch.from_numpy(packed.astype(np.uint8)).cuda()
-    b = torch.from_numpy(lens).cuda()
-    tab = torch.tensor(table, dtype=torch.int32, device="cuda")
-    kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
-    y = cuda_kernels.sum_signal(a, b, tab, **kw)
-    torch.cuda.synchronize()
-    assert torch.equal(y, cuda_kernels.sum_signal_plain(a, b, tab, **kw)), \
-        f"sum_signal of {root} differs from its plain version"
-    queued, paced, _ = _median_ms(torch, lambda: cuda_kernels.sum_signal(a, b, tab, **kw),
-                                  lambda: None)
+    a, b = torch.from_numpy(pack(codes, lens)).cuda(), torch.from_numpy(lens).cuda()
+    ends = _reads(rng, 256, 1000)
+    ends_len = np.full(256, 1000, np.int32)
+    ea, eb = torch.from_numpy(pack(ends, ends_len)).cuda(), torch.from_numpy(ends_len).cuda()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
-    print(f"[time] sum_signal of {root} B=128 L=19968 k=5 lean: {paced:.4f} ms a launch "
-          f"paced by the host, {queued:.4f} ms queued back to back, y bit-identical to its "
-          f"plain version (CUDA events, medians; {smi})")
+
+    def report(name, label, kern, plain):
+        got = kern()
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain()), f"{name} of {root} differs from its plain version"
+        queued, paced, _ = _median_ms(torch, kern, lambda: None)
+        print(f"[time] {name} of {root} {label}: {paced:.4f} ms a launch paced by the host, "
+              f"{queued:.4f} ms queued back to back, bit-identical to its plain version "
+              f"(CUDA events, medians; {smi})")
+
+    for name, k in (("sum_signal", 5), ("greedy_signal", 7)):
+        tab = table(k)
+        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+        report(name, f"B=128 L=19968 k={k} lean",
+               lambda: getattr(cuda_kernels, name)(a, b, tab, **kw),
+               lambda: getattr(cuda_kernels, name + "_plain")(a, b, tab, **kw))
+    for k in (7, 5):
+        tab = table(k)
+        if hasattr(cuda_kernels, "step1_counts"):
+            kw = dict(k=k, L=1000, lean=True)
+            report("step1_counts", f"[256, 1000] k={k} lean",
+                   lambda: cuda_kernels.step1_counts(ea, eb, tab, **kw),
+                   lambda: cuda_kernels.step1_counts_plain(ea, eb, tab, **kw))
+        else:
+            kw = dict(k=k, J=1000 - k + 1, W=1, slide=1, L=1000, lean=True)
+            report("greedy_counts (W = 1: the step-1 count)", f"[256, 1000] k={k} lean",
+                   lambda: cuda_kernels.greedy_counts(ea, eb, tab, **kw),
+                   lambda: cuda_kernels.greedy_counts_plain(ea, eb, tab, **kw))
     return 0
 
 
@@ -270,7 +314,7 @@ def _sharded_phase(torch, dev, batches, ends):
     """Phase 3's sharded caller: ShardedScanModel over [dev, dev] (two
     shards on one card, the only split one card allows) against one
     TorchScanModel, bit for bit, at k=5 (sum kernel) and k=7 (greedy
-    kernel): step 1, step 2 on every (label, codes, lens) of `batches`,
+    kernel): step 1 (step1_counts), step 2 on every (label, codes, lens) of `batches`,
     the packed API and rawcounts.  Every shard launches its kernel: the
     counts double.  Returns the lines to print."""
     import numpy as np
@@ -305,9 +349,9 @@ def _sharded_phase(torch, dev, batches, ends):
         single = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
                                 window_size=100, slide=6)
         sharded = ShardedScanModel(single, [dev, dev])
-        kern = "sum_boundary" if single.fused else "greedy_signal"
-        s1 = "plain torch sums" if single.aperiodic else "greedy_counts"
-        twice(f"k={phrase} step 1", None if single.aperiodic else "greedy_counts",
+        assert single.fused
+        kern = f"{single.kernel}_boundary"
+        twice(f"k={phrase} step 1", "step1_counts",
               lambda: single.step1_counts(ends, ends_len),
               lambda: sharded.step1_counts(ends, ends_len))
         for label, codes, lens in batches:
@@ -328,8 +372,9 @@ def _sharded_phase(torch, dev, batches, ends):
                          f"two shards on {dev} (one card: the only split it allows) == one "
                          f"model bit for bit in (t, has), packed API and rawcounts; {kern} "
                          f"launched once per shard; {int(want[1].sum())} boundaries")
-        lines.append(f"[shard] k={phrase} step 1 ({s1}) [{ends.shape[0]}, 2, "
-                     f"{ends.shape[2]}]: two shards == one model bit for bit")
+        lines.append(f"[shard] k={phrase} step 1 (step1_counts, launched once per shard) "
+                     f"[{ends.shape[0]}, 2, {ends.shape[2]}]: two shards == one model bit "
+                     f"for bit")
     # a handle syncs on its own card's stream whichever card is current
     # (with one card, current and own are the same card)
     label, codes, lens = batches[0]
@@ -351,7 +396,7 @@ def _free_port() -> int:
 
 
 # a child of phase 4: the port's CLI, then its kernel launch counts and its
-# calls of the plain torch changepoint by device type
+# calls of the plain torch changepoint and of the plain step 1 by device type
 _CHILD = ("import json, sys\n"
           "sys.path.insert(0, {repo!r})\n"
           "from topsicle_tpu_torch import cli\n"
@@ -359,6 +404,7 @@ _CHILD = ("import json, sys\n"
           "rc = cli.main({argv!r})\n"
           "print('LAUNCHES ' + json.dumps(cuda_kernels.LAUNCHES))\n"
           "print('PLAIN_CALLS ' + json.dumps(changepoint.PLAIN_CALLS))\n"
+          "print('STEP1_PLAIN_CALLS ' + json.dumps(cuda_kernels.STEP1_PLAIN_CALLS))\n"
           "sys.exit(rc)\n")
 
 
@@ -389,18 +435,20 @@ def _run_processes(repo, argvs, device_line, card=True):
                if x.startswith("LAUNCHES ")]
         assert got and (sum(got[0].values()) > 0 or not card), \
             f"process {i} launched no kernel: {got}"
-        plain = [json.loads(x[len("PLAIN_CALLS "):]) for x in out.splitlines()
-                 if x.startswith("PLAIN_CALLS ")]
-        assert plain and plain[0]["cuda"] == 0, \
-            f"process {i} ran the plain torch changepoint on the card: {plain}"
+        for what in ("PLAIN_CALLS ", "STEP1_PLAIN_CALLS "):
+            plain = [json.loads(x[len(what):]) for x in out.splitlines()
+                     if x.startswith(what)]
+            assert plain and plain[0]["cuda"] == 0, \
+                f"process {i} ran a plain torch version on the card: {what}{plain}"
         launches.append(got[0])
     return wall, launches
 
 
 def _outputs(out):
-    """The CSV and subset files of a run directory, by name."""
+    """The CSVs (rawcount ones included) and subset files of a run
+    directory, by name."""
     return {n: open(os.path.join(out, n), "rb").read() for n in sorted(os.listdir(out))
-            if n == "telolengths_all.csv" or n.endswith(".fastq")}
+            if n.endswith((".csv", ".fastq"))}
 
 
 def _multiprocess_phase(repo, work, files, device, device_line):
@@ -474,8 +522,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--sum-signal-of"]:
-        return _sum_signal_of(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--times-of"]:
+        return _times_of(torch, sys.argv[2])
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     import numpy as np
@@ -507,8 +555,9 @@ def main() -> int:
     files = os.path.join(work, "files")
     os.makedirs(files)
     rng = np.random.default_rng(8)
-    files_bp = sum(_write_fastq(os.path.join(files, f"part{i}.fastq.gz"), rng, n)
-                   for i, n in enumerate(FILE_READS))
+    file_bp = [_write_fastq(os.path.join(files, f"part{i}.fastq.gz"), rng, n)
+               for i, n in enumerate(FILE_READS)]
+    files_bp = sum(file_bp)
     print(f"[mp] wrote {len(FILE_READS)} files of {FILE_READS} reads, "
           f"{files_bp / 1e6:.1f} Mbp")
     k16 = os.path.join(work, "k16.fastq.gz")
@@ -519,12 +568,15 @@ def main() -> int:
                                 telophrase=[7]),
                "files": _start_oracle(repo, os.path.join(work, "oraclefiles"),
                                       input_dir=files, slide=6),
+               "raw": _start_oracle(repo, os.path.join(work, "oracleraw"),
+                                    input_dir=os.path.join(files, RAW_FILE), slide=6,
+                                    telophrase=[7], rawcountpattern=True),
                "k16": _start_oracle(repo, os.path.join(work, "oraclek16"), input_dir=k16,
                                     pattern=K16_PATTERN, telophrase=K16_PHRASES,
                                     cutoff=[K16_CUTOFF])}
     try:
         return _phases(torch, name, smi, repo, work, fq, bp, oracles,
-                       (files, files_bp, k16))
+                       (files, files_bp, k16, file_bp[2]))
     finally:
         for p in oracles.values():
             if p.poll() is None:
@@ -643,13 +695,19 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         del c_p
         assert torch.equal(ops.window_signal(c_k), y_k), f"{label}: counts and signal differ"
         nw = torch.from_numpy(ragged_windows(lens, w, slide, y_p.shape[1])).to(dev)
-        n = int(changepoints(label, y_k, y_p, nw)[1].sum())
+        want = changepoints(label, y_k, y_p, nw)
+        agree_boundary("greedy_boundary", label,
+                       cuda_kernels.greedy_boundary(a, b, tab, nw, **skw), want)
         if cpu_check:
             y_c = cuda_kernels.greedy_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **skw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
-        print(f"[kernel] greedy {label}: y_int {tuple(y_k.shape)} and counts "
-              f"{tuple(c_k.shape)} bit-identical (max count {int(c_k.max())}), binseg_l2's "
-              f"(t, has) identical to plain torch, {n} reads with a boundary")
+            t_c, h_c = cuda_kernels.greedy_boundary(a.cpu(), b.cpu(), tab.cpu(), nw.cpu(), **skw)
+            assert torch.equal(want[0].cpu(), t_c) and torch.equal(want[1].cpu(), h_c), \
+                f"{label}: (t, has) on the card differ from the CPU's"
+        print(f"[kernel] greedy_signal, greedy_counts, greedy_boundary {label}: y_int "
+              f"{tuple(y_k.shape)}, counts {tuple(c_k.shape)} (max {int(c_k.max())}) and "
+              f"(t, has) bit-identical to plain torch, binseg_l2's too, "
+              f"{int(want[1].sum())} reads with a boundary")
 
     def ragged(codes):
         lens = rng.integers(L // 2, L + 1, codes.shape[0]).astype(np.int32)
@@ -709,17 +767,47 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     codes, lens = ragged(_reads(rng, 128, L, pattern="CCCTAA"))
     greedy_case(f"K={len(k40)} k=7 dense", dirty(codes), lens, pack_kmer_table(k40),
                 7, 100, 6, False)
-    ends = _reads(rng, 256, 1000)                       # step 1: [B * 2 ends, no_bp]
+    # K = 120: the planes of a read pass a block's shared memory, so the
+    # table goes in two groups of entries
+    codes, lens = ragged(_reads(rng, 16, L, pattern="CCCTAA"))
+    greedy_case(f"K={3 * len(k40)} k=7 lean", codes, lens, pack_kmer_table(k40 * 3),
+                7, 100, 6, True)
+    # a homopolymer entry on reads that are one run of A's: the longest
+    # chains a window can hold, J // k + 1 takes of J occurrences
+    codes, lens = ragged(np.zeros((16, L), np.uint8))
+    greedy_case("AAAAAAA on runs of A lean", codes, lens,
+                pack_kmer_table(["AAAAAAA", "CCCTAAA", "TTTTTTT"]), 7, 100, 6, True)
+    for w, slide, what in ((72, 31, "J=65, a window's bits straddle three plane words"),
+                           (200, 6, "J=193 > 96")):
+        codes, lens = ragged(_reads(rng, 16, L))
+        greedy_case(f"w={w} slide={slide} k=7 dense ({what})", dirty(codes), lens, k7, 7,
+                    w, slide, False)
+    # step 1: [B * 2 ends, no_bp]; rows of 1000, 0, 3 and k bases, a run of A's
+    ends = _reads(rng, 256, 1000)
+    ends[0, :400] = 0
     ends_len = np.full(256, 1000, np.int32)
-    for lean in (True, False):
-        e = ends if lean else dirty(ends.copy())
-        tab = torch.from_numpy(k7).to(dev)
-        a, b = wire(e, ends_len, lean)
-        kw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=lean)
-        c_k = cuda_kernels.greedy_counts(a, b, tab, **kw)
-        agree("greedy_counts", "step 1", c_k, cuda_kernels.greedy_counts_plain(a, b, tab, **kw))
-        print(f"[kernel] greedy_counts step 1 [256, 1000] {'lean' if lean else 'dense'}: "
-              f"counts {tuple(c_k.shape)} bit-identical (max {int(c_k.max())})")
+    k33 = (telophrase_kmers("CCCTAAA", 5) + telophrase_kmers("CCCTAA", 5)
+           + ["AAAAA", "CACAC", "ACACA", "TTTTT", "GGGGG", "ATATA", "CCCTA"])
+    for label, kmers in (("CCCTAAA k=7", telophrase_kmers("CCCTAAA", 7)),
+                         ("CCCTAAA k=5", telophrase_kmers("CCCTAAA", 5)),
+                         ("AAAAAAA", ["AAAAAAA", "CCCTAAA"]),
+                         (f"K={len(k33)} k=5 (a second round of entries)", k33),
+                         (f"K={len(k40)} k=7", k40)):
+        k = len(kmers[0])
+        tab = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
+        for lean in (True, False):
+            e, el = (ends.copy() if lean else dirty(ends.copy())), ends_len.copy()
+            el[1:4] = (0, 3, k)
+            e[np.arange(1000)[None, :] >= el[:, None]] = 0xFF
+            ea, eb = wire(e, el, lean)
+            kw = dict(k=k, L=1000, lean=lean)
+            c_k = cuda_kernels.step1_counts(ea, eb, tab, **kw)
+            agree("step1_counts", label, c_k, cuda_kernels.step1_counts_plain(ea, eb, tab, **kw))
+            assert c_k.shape == (256, len(kmers)) and not c_k[1:3].any(), label
+            print(f"[kernel] step1_counts {label} [256, 1000] {'lean' if lean else 'dense'}: "
+                  f"counts {tuple(c_k.shape)} bit-identical to plain torch (max "
+                  f"{int(c_k.max())}; rows of 0 and 3 bases count 0)")
+    assert cuda_kernels.STEP1_PLAIN_CALLS["cuda"] == 10, cuda_kernels.STEP1_PLAIN_CALLS
 
     # ---- 3. the sharded caller, two shards on the one card ------------------
     batches = []
@@ -736,18 +824,18 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         rc = p.wait(timeout=900)
         log = open(os.path.join(work, f"oracle{k}.log")).read()
         assert rc == 0, f"OracleEngine {k} exited {rc}:\n{log[-2000:]}"
-    print(f"[e2e] OracleEngine on the four inputs ({len(oracles)} processes beside phases "
+    print(f"[e2e] OracleEngine on its {len(oracles)} inputs (as many processes, beside phases "
           f"2-3) done {time.perf_counter() - t_oracle:.1f} s after the build began")
-    sub = os.path.basename(writer.subset_path(work, fq, 0.7))
+    files, files_bp, k16, raw_bp = mp_inputs
     e2e = {}
 
-    def drive(label, out, oracle, launched, *extra):
+    def drive(label, out, oracle, launched, *extra, inp=fq, n_reads=4096, bases=bp):
         """One CLI path on the card, with the launch counts set to 0 just
         before it and read just after."""
         cuda_kernels.reset_launch_counts()
-        changepoint.PLAIN_CALLS["cuda"] = 0
+        changepoint.PLAIN_CALLS["cuda"] = cuda_kernels.STEP1_PLAIN_CALLS["cuda"] = 0
         t0 = time.perf_counter()
-        rc = cli.main(["--inputDir", fq, "--outputDir", os.path.join(work, out), "--pattern",
+        rc = cli.main(["--inputDir", inp, "--outputDir", os.path.join(work, out), "--pattern",
                        "CCCTAAA", "--slide", "6", "--batchSize", "128", "--device", "cuda",
                        *extra])
         torch.cuda.synchronize()
@@ -758,30 +846,39 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         assert ran == set(launched), f"{label}: launched {launches}, expected {launched}"
         assert changepoint.PLAIN_CALLS["cuda"] == 0, \
             f"{label}: the plain torch changepoint ran on the card {changepoint.PLAIN_CALLS}"
+        assert cuda_kernels.STEP1_PLAIN_CALLS["cuda"] == 0, \
+            f"{label}: the plain torch step 1 ran on the card {cuda_kernels.STEP1_PLAIN_CALLS}"
         log_text = open(os.path.join(work, out, "topsicle_run.log")).read()
         assert f"device: cuda:0 ({name})" in log_text, f"{label}: not run on the card"
         reader_line = [ln for ln in log_text.splitlines() if "reader: " in ln][0]
-        got = open(os.path.join(work, out, "telolengths_all.csv"), "rb").read()
-        want = open(os.path.join(work, oracle, "telolengths_all.csv"), "rb").read()
-        assert got == want, f"{label}: telolengths_all.csv differs from the oracle's"
-        assert open(os.path.join(work, out, sub), "rb").read() == \
-            open(os.path.join(work, oracle, sub), "rb").read(), f"{label}: subset differs"
-        rows = got.count(b"\n") - 1
-        assert rows > 100, f"{label}: only {rows} rows"
-        print(f"[e2e] {label} on {name}: {rows} rows, CSV and subset byte-identical to the "
-              f"oracle; kernel launches {launches}, plain changepoint on the card 0 times; "
-              f"{reader_line.split('] ')[-1]}; wall {wall:.2f} s = "
-              f"{4096 / wall:.0f} reads/s, {bp / 1e6 / wall:.2f} Mbp/s")
-        e2e[label] = (wall, launches)
+        got, want = _outputs(os.path.join(work, out)), _outputs(os.path.join(work, oracle))
+        assert sorted(got) == sorted(want), f"{label}: files {sorted(got)} vs {sorted(want)}"
+        for fname in want:
+            assert got[fname] == want[fname], f"{label}: {fname} differs from the oracle's"
+        assert os.path.basename(writer.subset_path(work, inp, 0.7)) in want, sorted(want)
+        rows = got["telolengths_all.csv"].count(b"\n") - 1
+        assert rows > n_reads // 40, f"{label}: only {rows} rows"
+        print(f"[e2e] {label} on {name}: {rows} rows, {len(want)} files (CSVs and subset) "
+              f"byte-identical to the oracle; kernel launches {launches}, plain changepoint "
+              f"and plain step 1 on the card 0 times; {reader_line.split('] ')[-1]}; wall "
+              f"{wall:.2f} s = {n_reads / wall:.0f} reads/s, {bases / 1e6 / wall:.2f} Mbp/s")
+        e2e[label] = (wall, launches, n_reads, bases)
+        return want
 
-    drive("k=5 auto", "port5", "oracle5", ["sum_boundary"])
-    drive("--telophrase 7", "port7", "oracle7",
-          ["greedy_signal", "greedy_counts", "binseg_l2"], "--telophrase", "7")
-    drive("--kernel greedy k=5", "port5g", "oracle5", ["greedy_signal", "binseg_l2"],
-          "--kernel", "greedy")
-    drive("--kernel sum k=5", "port5s", "oracle5", ["sum_signal", "binseg_l2"],
+    drive("k=5 auto", "port5", "oracle5", ["sum_boundary", "step1_counts"])
+    drive("--telophrase 7", "port7", "oracle7", ["greedy_boundary", "step1_counts"],
+          "--telophrase", "7")
+    drive("--kernel greedy k=5", "port5g", "oracle5",
+          ["greedy_signal", "binseg_l2", "step1_counts"], "--kernel", "greedy")
+    drive("--kernel sum k=5", "port5s", "oracle5", ["sum_signal", "binseg_l2", "step1_counts"],
           "--kernel", "sum")
-    files, files_bp, k16 = mp_inputs
+    raw = drive("--telophrase 7 --rawcountpattern", "port7raw", "oracleraw",
+                ["greedy_boundary", "greedy_counts", "step1_counts"], "--telophrase", "7",
+                "--rawcountpattern", inp=os.path.join(files, RAW_FILE), n_reads=RAW_READS,
+                bases=raw_bp)
+    n_raw = sum(n.startswith("rawcount_7_") for n in raw)
+    assert n_raw > RAW_READS // 40, f"--rawcountpattern: {n_raw} rawcount CSVs"
+    print(f"[e2e] --rawcountpattern: {n_raw} rawcount CSVs among them")
     device_line = f"device: cuda:0 ({name})"
     mp = _multiprocess_phase(repo, work, files, "cuda", device_line)
     for label, (wall, launches) in mp.items():
@@ -803,11 +900,12 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     def timed(kname, label, kern, plain, reps=25):
         times[kname] = _median_ms(torch, kern, plain, reps)
         q, paced, pl = times[kname]
-        bd, by = bounds[kname]
+        bd, by, n_bytes, n_ops = bounds[kname]
         print(f"[time] {kname} {label}: kernel {paced:.4f} ms a launch paced by the host, "
               f"{q:.4f} ms queued back to back, plain torch {pl:.4f} ms, bound {bd:.5f} ms "
-              f"by {by} ({bd / q:.1%} of the queued time), no library call computes it "
-              f"(CUDA events, medians; {smi})")
+              f"by {by} ({n_bytes} bytes, {n_ops} operations; {bd / q:.1%} of the queued "
+              f"time), no library call computes it (CUDA events, medians; {smi})")
+        assert bd <= q, f"{kname}: {q} ms is under its bound of {bd} ms: the count is wrong"
 
     # Bounds, from this run's inputs.  Bytes: each input once, each output
     # once.  Operations: the 32-bit integer operations the function needs,
@@ -818,26 +916,33 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     # window starts on a group), 3 a group (a prefix add and two segment
     # ORs) and 4 a window (difference, OR, popcount, add).  The changepoint:
     # 2 a window (the int64 prefix) and 40 a candidate (A and D in int64
-    # and the exact 192-bit compare of A*A*D, in 32-bit operations).  The
-    # greedy count of an aperiodic entry is its match count: 2 a position
-    # (its bit, a prefix add) and 3 a window (difference, floor, add); only
-    # a periodic entry needs the walk, 5 a step (match bit, compare with
-    # the next free position, count, advance, loop) over the J offsets of
-    # every window that starts inside the read.
+    # and the exact 192-bit compare of A*A*D, in 32-bit operations).
+    # The greedy counts, whatever computes them: a position inside the read
+    # needs its code and validity (4) and one match bit an entry (K); a
+    # (window, entry) whose window starts inside the read the extraction of
+    # its bits, their count, the floor and the add (4; the raw counts a
+    # store for the last two); every window its sum's store (1); and a
+    # self-overlapping entry one step for each match its chain TAKES (clear
+    # below the next free offset, find the lowest, count, advance: 4), from
+    # this run's plain counts.  No walk over offsets is among the needs.
+    # Step 1 is the same with one window a row.
     from topsicle_tpu_torch.kmers import aperiodic_mask
 
     def positions_inside(lengths, k, n_positions):
         return np.clip(lengths.astype(np.int64) - k + 1, 0, n_positions)
 
-    def greedy_ops(lengths, kmers, k, J, W, slide):
+    def greedy_ops(lengths, kmers, k, J, W, slide, counts):
         """Operations the greedy counts of `kmers` need on reads of these
-        lengths: W windows of J offsets, `slide` apart."""
+        lengths: W windows of J offsets, `slide` apart; `counts` [B, K, W]
+        are this run's plain counts, whose self-overlapping entries' sum
+        is the number of matches taken."""
         inside = positions_inside(lengths, k, (W - 1) * slide + J)
         started = np.minimum(-(-inside // slide), W)
-        ka = sum(aperiodic_mask(kmers))
-        kp = len(kmers) - ka
-        return int(((5 + 2 * ka) * inside).sum() + 3 * ka * len(lengths) * W
-                   + (5 * J + 2) * kp * started.sum())
+        overlapping = [i for i, ap in enumerate(aperiodic_mask(kmers)) if not ap]
+        takes = int(counts[:, overlapping].sum())
+        K = len(kmers)
+        return int(((4 + K) * inside).sum() + 4 * K * started.sum() + len(lengths) * W
+                   + 4 * takes)
 
     wire_bytes = a.numel() + b.numel() * 4
     inside = int(positions_inside(lens, 5, (W - 1) * 6 + 95).sum())
@@ -847,11 +952,15 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     bounds["sum_boundary"] = _bound(wire_bytes + B * 4 + B * 9, sum_ops + binseg_ops)
     bounds["sum_signal"] = _bound(wire_bytes + B * W * 4, sum_ops)
     bounds["binseg_l2"] = _bound(B * W * 4 + B * 4 + B * 9, binseg_ops)
-    bounds["greedy_signal"] = _bound(wire_bytes + B * W * 4,
-                                     greedy_ops(lens, kmers7, 7, 93, W, 6))
     tab5, tab7 = torch.from_numpy(demo).to(dev), torch.from_numpy(k7).to(dev)
     kw5 = dict(k=5, window_size=100, slide=6, L=L, lean=True)
     kw7 = dict(kw5, k=7)
+    ckw = dict(k=7, J=93, W=W, slide=6, L=L, lean=True)
+    g_ops = greedy_ops(lens, kmers7, 7, 93, W, 6,
+                       cuda_kernels.greedy_counts_plain(a, b, tab7, **ckw))
+    bounds["greedy_boundary"] = _bound(wire_bytes + B * 4 + B * 9, g_ops + binseg_ops)
+    bounds["greedy_signal"] = _bound(wire_bytes + B * W * 4, g_ops)
+    bounds["greedy_counts"] = _bound(wire_bytes + B * len(k7) * W * 4, g_ops)
     timed("sum_boundary", "B=128 L=19968 k=5 lean",
           lambda: cuda_kernels.sum_boundary(a, b, tab5, nw_dev, **kw5),
           lambda: cuda_kernels.sum_boundary_plain(a, b, tab5, nw_dev, **kw5), reps=10)
@@ -861,16 +970,31 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     y = cuda_kernels.sum_signal(a, b, tab5, **kw5)
     timed("binseg_l2", "y [128, 3312]", lambda: cuda_kernels.binseg_l2(y, nw_dev),
           lambda: ops.binseg_l2_device(y, nw_dev), reps=10)
+    timed("greedy_boundary", "B=128 L=19968 k=7 lean",
+          lambda: cuda_kernels.greedy_boundary(a, b, tab7, nw_dev, **kw7),
+          lambda: cuda_kernels.greedy_boundary_plain(a, b, tab7, nw_dev, **kw7), reps=10)
     timed("greedy_signal", "B=128 L=19968 k=7 lean",
           lambda: cuda_kernels.greedy_signal(a, b, tab7, **kw7),
           lambda: cuda_kernels.greedy_signal_plain(a, b, tab7, **kw7))
+    timed("greedy_counts", "rawcounts [128, 14, 3312] k=7 lean",
+          lambda: cuda_kernels.greedy_counts(a, b, tab7, **ckw),
+          lambda: cuda_kernels.greedy_counts_plain(a, b, tab7, **ckw), reps=10)
+    ends = _reads(rng, 256, 1000)
+    ends_len = np.full(256, 1000, np.int32)
     ea, eb = wire(ends, ends_len, True)
-    ckw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=True)
-    bounds["greedy_counts"] = _bound(ea.numel() + eb.numel() * 4 + 256 * len(k7) * 4,
-                                     greedy_ops(ends_len, kmers7, 7, 994, 1, 1))
-    timed("greedy_counts", "step 1 [256, 1000] k=7 lean",
-          lambda: cuda_kernels.greedy_counts(ea, eb, tab7, **ckw),
-          lambda: cuda_kernels.greedy_counts_plain(ea, eb, tab7, **ckw), reps=10)
+    for kname, kmers, tab in (("step1_counts", kmers7, tab7),
+                              ("step1_counts k=5", telophrase_kmers("CCCTAAA", 5), tab5)):
+        k = len(kmers[0])
+        skw = dict(k=k, L=1000, lean=True)
+        c1 = cuda_kernels.step1_counts_plain(ea, eb, tab, **skw)
+        inside1 = positions_inside(ends_len, k, 1000 - k + 1)
+        overlapping = [i for i, ap in enumerate(aperiodic_mask(kmers)) if not ap]
+        s1_ops = int(((4 + len(kmers)) * inside1).sum() + 2 * c1.numel()
+                     + 4 * int(c1[:, overlapping].sum()))
+        bounds[kname] = _bound(ea.numel() + eb.numel() * 4 + c1.numel() * 4, s1_ops)
+        timed(kname, f"[256, 1000] k={k} lean",
+              lambda: cuda_kernels.step1_counts(ea, eb, tab, **skw),
+              lambda: cuda_kernels.step1_counts_plain(ea, eb, tab, **skw), reps=10)
     da, db = wire(dirty(codes.copy()), lens, False)
     kwd = dict(kw5, lean=False)
     print(f"[time] dense wire (2% invalid) B=128 L=19968 k=5: sum_boundary "
@@ -887,10 +1011,6 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
           f"{_queued_ms(torch, lambda: cuda_kernels.sum_signal(a8, b8, tab5, **kw5)):.4f} ms "
           f"queued back to back (CUDA events, medians; {smi})")
     del codes8, a8, b8
-    ckw = dict(k=7, J=93, W=W, slide=6, L=L, lean=True)
-    rc_ms = _queued_ms(torch, lambda: cuda_kernels.greedy_counts(a, b, tab7, **ckw))
-    print(f"[time] greedy_counts rawcounts B=128 L=19968 k=7 lean: kernel {rc_ms:.4f} ms "
-          f"queued back to back (CUDA events, median; {smi})")
     for phrase in (5, 7):
         model = TorchScanModel(telophrase_kmers("CCCTAAA", phrase), device=dev,
                                window_size=100, slide=6)
@@ -902,7 +1022,7 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
             model.step2_boundary(codes, nw, lens)
             host.append((time.perf_counter() - t0) * 1e3)
         dev_ms = _cuda_ms(torch, lambda: model.step2_boundary(codes, nw, lens), 20)
-        route = "sum_boundary" if model.fused else f"{model.kernel}_signal + binseg_l2"
+        route = f"{model.kernel}_boundary"
         print(f"[time] step-2 launch path k={phrase} ({route}) B=128 (pack, "
               f"H2D, kernel, changepoint, D2H): {statistics.median(host):.3f} ms host clock, "
               f"{statistics.median(dev_ms):.3f} ms CUDA events, median of 20 ({smi})")
@@ -929,9 +1049,9 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         pack.append((time.perf_counter() - t0) * 1e3)
     print(f"[time] of which: host pack (clean check + 2-bit pack) "
           f"{statistics.median(pack):.3f} ms host clock ({smi})")
-    for label, (wall, _) in e2e.items():
-        print(f"[time] end to end {label}: {wall:.2f} s wall for 4096 reads = "
-              f"{4096 / wall:.1f} reads/s, {bp / 1e6 / wall:.3f} Mbp/s ({smi})")
+    for label, (wall, _, n_reads, bases) in e2e.items():
+        print(f"[time] end to end {label}: {wall:.2f} s wall for {n_reads} reads = "
+              f"{n_reads / wall:.1f} reads/s, {bases / 1e6 / wall:.3f} Mbp/s ({smi})")
     n_files = sum(FILE_READS)
     for label, (wall, _) in mp.items():
         print(f"[time] {label}, {len(FILE_READS)} files: {wall:.2f} s wall from process start "
@@ -943,19 +1063,32 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     src = "topsicle_tpu_torch/csrc/"
     sum_kernel = "topsicle_tpu/ops/pallas_kernels.py:224"
     greedy_kernel = "topsicle_tpu/ops/pallas_kernels.py:148"
+    step1 = "topsicle_tpu/models/telomere.py:185"
     rec = [("sum_boundary", "sum_signal.cu", sum_kernel, "k=5 auto"),
            ("sum_signal", "sum_signal.cu", sum_kernel, "--kernel sum k=5"),
-           ("binseg_l2", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124", "--telophrase 7"),
-           ("greedy_signal", "greedy_signal.cu", greedy_kernel, "--telophrase 7"),
-           ("greedy_counts", "greedy_signal.cu", greedy_kernel, "--telophrase 7")]
+           ("binseg_l2", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124",
+            "--kernel greedy k=5"),
+           ("greedy_boundary", "greedy_signal.cu", greedy_kernel, "--telophrase 7"),
+           ("greedy_signal", "greedy_signal.cu", greedy_kernel, "--kernel greedy k=5"),
+           ("greedy_counts", "greedy_signal.cu", greedy_kernel,
+            "--telophrase 7 --rawcountpattern"),
+           ("step1_counts", "step1_counts.cu", step1, "--telophrase 7")]
+    assert {n for n, *_ in rec} == set(cuda_kernels.LAUNCHES)
     for n, _, _, run in rec:
         assert e2e[run][1][n] > 0, f"{n} was not launched on the {run} path"
+    # step 1 at the main path's own table (k = 5) rides the step1_counts row
+    k5 = {"k5_launches": e2e["k=5 auto"][1]["step1_counts"],
+          "k5_ms": times["step1_counts k=5"][1], "k5_queued_ms": times["step1_counts k=5"][0],
+          "k5_plain_ms": times["step1_counts k=5"][2],
+          "k5_bound_ms": bounds["step1_counts k=5"][0],
+          "k5_bound_by": bounds["step1_counts k=5"][1]}
     print(json.dumps({"kernels": [{
-        "name": n, "route": "cuda", "source": src + f, "replaces": r,
+        "name": n, "route": "cuda", "source": src + f, "replaces": r, "path": run,
         "launches": e2e[run][1][n], "max_abs_err": max_err[n],
         "ms": times[n][1], "plain_ms": times[n][2], "bound_ms": bounds[n][0],
-        "bound_by": bounds[n][1], "library_ms": None,
-        "queued_ms": times[n][0]} for n, f, r, run in rec]}))
+        "bound_by": bounds[n][1], "bound_bytes": bounds[n][2], "bound_operations": bounds[n][3],
+        "library_ms": None, "queued_ms": times[n][0],
+        **(k5 if n == "step1_counts" else {})} for n, f, r, run in rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

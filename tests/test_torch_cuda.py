@@ -156,26 +156,34 @@ def test_boundary_wrappers_reject_bad_inputs(dev):
                                   window_size=100, slide=6, L=1_200_000, lean=True)
 
 
-@pytest.mark.parametrize("kernel,launched", [
-    (None, ["sum_boundary"]), ("sum", ["sum_signal", "binseg_l2"]),
-    ("greedy", ["greedy_signal", "binseg_l2"])])
-def test_model_routes_on_card(dev, kernel, launched):
+@pytest.mark.parametrize("phrase,kernel,launched", [
+    (5, None, ["sum_boundary"]), (5, "sum", ["sum_signal", "binseg_l2"]),
+    (5, "greedy", ["greedy_signal", "binseg_l2"]),
+    (7, None, ["greedy_boundary"]), (7, "greedy", ["greedy_signal", "binseg_l2"])])
+def test_model_routes_on_card(dev, phrase, kernel, launched):
     """Each route launches its kernels and no other, never the plain
-    changepoint, and gives the CPU's (t, has)."""
+    changepoint or the plain step 1, and gives the CPU's (t, has) and
+    step-1 counts; step 1 is one launch of step1_counts for every table."""
     from topsicle_tpu_torch.ops import changepoint
 
-    kmers = telophrase_kmers("CCCTAAA", 5)
+    kmers = telophrase_kmers("CCCTAAA", phrase)
     model = TorchScanModel(kmers, device=dev, window_size=100, slide=6, kernel=kernel)
+    cpu = TorchScanModel(kmers, device="cpu", window_size=100, slide=6, kernel=kernel)
     codes, lens = _batch(31, 32, 8192, True)
     nw = batching.window_counts_for_lengths(lens, 100, 6)
     cuda_kernels.reset_launch_counts()
-    plain0 = changepoint.PLAIN_CALLS["cuda"]
+    plain0 = changepoint.PLAIN_CALLS["cuda"], cuda_kernels.STEP1_PLAIN_CALLS["cuda"]
     t, has = model.step2_boundary(codes, nw, lens)
-    assert sorted(n for n, c in cuda_kernels.LAUNCHES.items() if c) == sorted(launched)
-    assert changepoint.PLAIN_CALLS["cuda"] == plain0
-    tc, hc = TorchScanModel(kmers, device="cpu", window_size=100, slide=6,
-                            kernel=kernel).step2_boundary(codes, nw, lens)
+    assert {n: c for n, c in cuda_kernels.LAUNCHES.items() if c} == dict.fromkeys(launched, 1)
+    ends = codes[:, :2000].reshape(32, 2, 1000)
+    ends_len = np.minimum(lens, 1000).astype(np.int32)
+    counts = model.step1_counts(ends, ends_len)
+    assert {n: c for n, c in cuda_kernels.LAUNCHES.items() if c} == \
+        dict.fromkeys(launched + ["step1_counts"], 1)
+    assert (changepoint.PLAIN_CALLS["cuda"], cuda_kernels.STEP1_PLAIN_CALLS["cuda"]) == plain0
+    tc, hc = cpu.step2_boundary(codes, nw, lens)
     assert np.array_equal(t, tc) and np.array_equal(has, hc) and has.any()
+    assert np.array_equal(counts, cpu.step1_counts(ends, ends_len)) and counts.max() > 10
 
 
 # K = 40: two mixed tables, a table whose entries repeat the first two
@@ -191,40 +199,84 @@ _K40 = (telophrase_kmers("CCCTAAA", 7) + telophrase_kmers("CCCTAA", 7)
     ("ATAT", telophrase_kmers("ATAT", 4), 100, 6),         # periodic duplicates
     ("CCCTAA", _K40, 100, 6),
     ("CCCTAAA", telophrase_kmers("CCCTAAA", 7), 20, 1),
+    ("A", ["AAAAAAA", "CCCTAAA"], 100, 6),                 # period 1 on a run of A's
+    ("CCCTAAA", telophrase_kmers("CCCTAAA", 7), 200, 6),   # J = 193 > 96: seven plane words
+    ("CCCTAAA", telophrase_kmers("CCCTAAA", 7), 72, 31),   # J = 65: bits straddle three words
+    ("CCCTAA", _K40 * 3, 100, 6),                          # K = 120: the table in two groups
 ])
 @pytest.mark.parametrize("lean", [True, False])
 def test_greedy_kernels_match_plain(dev, pattern, kmers, w, slide, lean):
+    """The three entries of the greedy body against their plain versions,
+    with window counts of 0, 3 and W among the reads' own."""
     k = len(kmers[0])
-    codes, lens = _batch(len(kmers) + w, 64, 4096, lean, pattern)
+    B, L = (16, 19968) if len(kmers) > 100 else (64, 4096)
+    codes, lens = _batch(len(kmers) + w, B, L, lean, pattern)
     table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
     a, b = _wire(codes, lens, lean, dev)
     L = a.shape[1] * 4
+    W = (L - w) // slide + 1
     skw = dict(k=k, window_size=w, slide=slide, L=L, lean=lean)
-    ckw = dict(k=k, J=w - k, W=(L - w) // slide + 1, slide=slide, L=L, lean=lean)
+    ckw = dict(k=k, J=w - k, W=W, slide=slide, L=L, lean=lean)
+    nw = batching.window_counts_for_lengths(lens, w, slide)
+    nw[:3] = np.minimum((0, 3, W), W)
+    nw = torch.from_numpy(nw).to(dev)
     n0 = dict(cuda_kernels.LAUNCHES)
     y = cuda_kernels.greedy_signal(a, b, table, **skw)
     c = cuda_kernels.greedy_counts(a, b, table, **ckw)
+    t, has = cuda_kernels.greedy_boundary(a, b, table, nw, **skw)
     torch.cuda.synchronize()
-    assert cuda_kernels.LAUNCHES["greedy_signal"] == n0["greedy_signal"] + 1
-    assert cuda_kernels.LAUNCHES["greedy_counts"] == n0["greedy_counts"] + 1
+    for name in ("greedy_signal", "greedy_counts", "greedy_boundary"):
+        assert cuda_kernels.LAUNCHES[name] == n0[name] + 1
     assert torch.equal(y, cuda_kernels.greedy_signal_plain(a, b, table, **skw))
     assert torch.equal(c, cuda_kernels.greedy_counts_plain(a, b, table, **ckw))
     assert torch.equal(y, c.clamp_min(1).sum(dim=1, dtype=torch.int32))
     assert int(c.max()) > 1
+    tp, hp = cuda_kernels.greedy_boundary_plain(a, b, table, nw, **skw)
+    assert t.dtype == torch.int64 and has.dtype == torch.bool
+    assert torch.equal(t, tp) and torch.equal(has, hp) and has.any()
 
 
-@pytest.mark.parametrize("lean", [True, False])
-def test_greedy_step1_counts_match_plain(dev, lean):
-    """Step 1's shape: one window over every offset of [256, 1000] ends."""
+def test_greedy_counts_windows_past_the_read(dev):
+    """greedy_counts' general form: windows may reach past L - k, where
+    nothing matches, and one window may cover every offset."""
     kmers = telophrase_kmers("CCCTAAA", 7)
-    codes, lens = _batch(7, 256, 1000, lean)
+    codes, lens = _batch(3, 8, 1000, True)
+    table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
+    a, b = _wire(codes, lens, True, dev)
+    for kw in (dict(J=93, W=200, slide=6), dict(J=994, W=1, slide=1), dict(J=1200, W=2, slide=50)):
+        kw = dict(kw, k=7, L=1000, lean=True)
+        assert torch.equal(cuda_kernels.greedy_counts(a, b, table, **kw),
+                           cuda_kernels.greedy_counts_plain(a, b, table, **kw)), kw
+
+
+# 33 entries: a second round of 32 for the step-1 kernel
+_K33 = (telophrase_kmers("CCCTAAA", 5) + telophrase_kmers("CCCTAA", 5)
+        + ["AAAAA", "CACAC", "ACACA", "TTTTT", "GGGGG", "ATATA", "CCCTA"])
+
+
+@pytest.mark.parametrize("kmers", [telophrase_kmers("CCCTAAA", 7), telophrase_kmers("CCCTAAA", 5),
+                                   ["AAAAAAA", "CCCTAAA"], _K33, _K40],
+                         ids=["k7", "k5", "homopolymer", "K33", "K40"])
+@pytest.mark.parametrize("L", [1000, 1024])     # rows not 16-byte aligned, and aligned
+@pytest.mark.parametrize("lean", [True, False])
+def test_greedy_step1_counts_match_plain(dev, kmers, L, lean):
+    """Step 1's shape, [256, L] ends, through step1_counts: rows of 0 and
+    3 bases, a run of A's, one launch, never the plain version's call."""
+    k = len(kmers[0])
+    codes, lens = _batch(7, 256, L, lean)
+    codes[0, :300] = 0
+    lens[:4] = (L, 0, 3, k)
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 0xFF
     table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
     a, b = _wire(codes, lens, lean, dev)
-    kw = dict(k=7, J=1000 - 7 + 1, W=1, slide=1, L=1000, lean=lean)
-    c = cuda_kernels.greedy_counts(a, b, table, **kw)
-    assert c.shape == (256, 14, 1)
-    assert torch.equal(c, cuda_kernels.greedy_counts_plain(a, b, table, **kw))
-    assert int(c.max()) > 10
+    n0 = cuda_kernels.LAUNCHES["step1_counts"], cuda_kernels.STEP1_PLAIN_CALLS["cuda"]
+    c = cuda_kernels.step1_counts(a, b, table, k=k, L=L, lean=lean)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.LAUNCHES["step1_counts"], cuda_kernels.STEP1_PLAIN_CALLS["cuda"]) == \
+        (n0[0] + 1, n0[1])
+    assert c.shape == (256, len(kmers)) and c.dtype == torch.int32
+    assert torch.equal(c, cuda_kernels.step1_counts_plain(a, b, table, k=k, L=L, lean=lean))
+    assert int(c.max()) > 10 and not c[1:3].any()
 
 
 def test_greedy_wrapper_rejects_bad_inputs(dev):
@@ -239,6 +291,28 @@ def test_greedy_wrapper_rejects_bad_inputs(dev):
                                    lean=True)
     with pytest.raises(ValueError, match="fewer"):
         cuda_kernels.greedy_signal(a, b, table, **dict(kw, L=2048))
+    nw = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda_kernels.greedy_boundary(a, b, table, nw[:2], **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        cuda_kernels.greedy_boundary(a, b, table, nw.to(torch.int64), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_kernels.step1_counts(a.t().contiguous().t(), b, table, k=7, L=1024, lean=True)
+    with pytest.raises(ValueError, match="cpu"):
+        cuda_kernels.step1_counts(a, b.cpu(), table, k=7, L=1024, lean=True)
+    # what only the launchers can refuse: a read whose wire, y and one match
+    # plane pass a block's shared memory; four rows that pass it at step 1
+    long = torch.zeros((1, 300_000), dtype=torch.uint8, device=dev)
+    n1 = torch.tensor([1_200_000], dtype=torch.int32, device=dev)
+    n0 = dict(cuda_kernels.LAUNCHES)
+    for fn, args in ((cuda_kernels.greedy_signal, ()), (cuda_kernels.greedy_boundary, (n1,))):
+        with pytest.raises(ValueError, match="shared memory"):
+            fn(long, n1, table, *args, **dict(kw, L=1_200_000))
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_kernels.greedy_counts(a, b, table, k=7, J=93, W=400_000, slide=6, L=1024, lean=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_kernels.step1_counts(long, n1, table, k=7, L=1_200_000, lean=True)
+    assert cuda_kernels.LAUNCHES == n0          # a refused launch is not counted
 
 
 def test_wrapper_rejects_bad_inputs(dev):
@@ -357,14 +431,16 @@ def test_two_shards_on_one_card_match_single(dev, phrase):
     sharded = ShardedScanModel(single, [dev, dev])
     codes, lens = _batch(phrase, 64, 19968, False)
     nw = batching.window_counts_for_lengths(lens, 100, 6)
-    name = "sum_boundary" if phrase == 5 else "greedy_signal"
+    name = "sum_boundary" if phrase == 5 else "greedy_boundary"
     n0 = cuda_kernels.LAUNCHES[name]
     got = sharded.step2_boundary(codes, nw, lens)
     assert cuda_kernels.LAUNCHES[name] == n0 + 2
     for x, y in zip(got, single.step2_boundary(codes, nw, lens)):
         np.testing.assert_array_equal(x, y)
     ends = codes[:, :2000].reshape(64, 2, 1000)
+    n0 = cuda_kernels.LAUNCHES["step1_counts"]
     np.testing.assert_array_equal(sharded.step1_counts(ends), single.step1_counts(ends))
+    assert cuda_kernels.LAUNCHES["step1_counts"] == n0 + 3      # two shards, one model
     packed = sharded.pack_scan_batch(codes, lens)
     np.testing.assert_array_equal(np.asarray(sharded.rawcounts_launch_packed(packed)),
                                   single.rawcounts(codes, lens))

@@ -1,9 +1,12 @@
 """The greedy counts of the port (topsicle_tpu_torch.ops.match and the
 greedy kernel's wrappers in ops.cuda_kernels) vs the JAX package: step 1's
 greedy_count_chunked / greedy_count_full and the oracle's re.finditer
-count, window_nonoverlap_counts in every exact strategy, and the Pallas
+count, window_nonoverlap_counts in every exact strategy, the Pallas
 greedy kernel it replaces (step2_signal_pallas(_lean), run in interpret
-mode on its phase-planar wire, as tests/test_pallas.py runs it).
+mode on its phase-planar wire, as tests/test_pallas.py runs it), and, for
+the fused entry greedy_boundary, the JAX boundary programs
+_step2_boundary(_lean) and that Pallas kernel followed by
+binseg_l2_device.
 
 On the CPU the wrappers take the plain versions; the CUDA kernel itself is
 compiled and compared only on a card (tests/test_torch_cuda.py and
@@ -18,6 +21,7 @@ import jax.numpy as jnp
 from topsicle_tpu import ops as jops
 from topsicle_tpu.io import batch as batching
 from topsicle_tpu.kmers import aperiodic_mask, encode_ascii, pack_kmer_table, telophrase_kmers
+from topsicle_tpu.models.telomere import _step2_boundary, _step2_boundary_lean
 from topsicle_tpu.ops.pallas_kernels import step2_signal_pallas, step2_signal_pallas_lean
 from topsicle_tpu.oracle import count_nonoverlapping
 from topsicle_tpu_torch import ops as tops
@@ -231,11 +235,88 @@ def test_greedy_empty_geometry_and_envelope():
             fn(wire, lens, tab, k=16, slide=6, L=256, lean=True, **kw)
 
 
-def test_greedy_tile_geometry():
-    # main path: a full 256-window tile; an int32 code and a base per
-    # position, an int32 sum per window
-    tile, smem = cuda_kernels.tile_geometry(7, 6, 93, 3312, pos_bytes=5, win_bytes=4)
-    assert tile == 256 and smem == 5 * (255 * 6 + 93) + 4 * 256 + 6
-    # step 1: one window over every offset of a 1000-base end
-    assert cuda_kernels.tile_geometry(7, 1, 994, 1, pos_bytes=5, win_bytes=4) == \
-        (1, 5 * 994 + 4 + 6)
+# ---- greedy_boundary: the signal with the changepoint behind it --------------
+
+@pytest.mark.parametrize("pattern,k,w,slide,L,lean", [
+    ("CCCTAAA", 7, 100, 6, 2048, True),     # 8 of 14 entries periodic
+    ("CCCTAAA", 7, 100, 6, 2560, False),
+    ("CCCTAA", 5, 100, 6, 2048, False),     # human: 2 of 12
+    ("ATAT", 4, 64, 3, 1536, True),         # periodic, each entry twice
+    ("CCCTAAA", 7, 20, 1, 1003, True),      # slide 1, window 20
+    ("CCCTAAA", 5, 100, 6, 104, True),      # W = 1 < jump: no candidate
+])
+def test_greedy_boundary_matches_jax(pattern, k, w, slide, L, lean):
+    """Same wire, same table, ragged window counts (0, 3 and W among
+    them): greedy_boundary == its plain version == the JAX boundary
+    program with the exact offset scan == the Pallas greedy kernel
+    (interpret mode) followed by binseg_l2_device."""
+    table = pack_kmer_table(telophrase_kmers(pattern, k))
+    codes, lens = _batch(pattern, k + L, 8, L, lean)     # the Pallas kernel takes 8 rows
+    a, b = (batching.pack_codes(codes), lens) if lean else batching.pack_batch(codes)
+    Lw = a.shape[1] * 4
+    W = tops.num_windows(Lw, w, slide)
+    nw = batching.window_counts_for_lengths(lens, w, slide)
+    nw[:3] = np.minimum((0, 3, W), W)
+    kw = dict(k=k, window_size=w, slide=slide)
+    args = [torch.from_numpy(x) for x in (a, b, table, nw)]
+    n0 = dict(cuda_kernels.LAUNCHES)
+    t, has = cuda_kernels.greedy_boundary(*args, L=Lw, lean=lean, **kw)
+    assert cuda_kernels.LAUNCHES == n0          # the CPU launches no kernel
+    assert t.dtype == torch.int64 and has.dtype == torch.bool and t.shape == (8,)
+    tp, hp = cuda_kernels.greedy_boundary_plain(*args, L=Lw, lean=lean, **kw)
+    assert torch.equal(t, tp) and torch.equal(has, hp)
+    jax_fn = _step2_boundary_lean if lean else _step2_boundary
+    tj, hj = jax_fn(jnp.asarray(a), jnp.asarray(b), jnp.asarray(nw), jnp.asarray(table),
+                    jump=5, min_size=2, strategy="offset", **kw)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(tj))
+    np.testing.assert_array_equal(has.numpy(), np.asarray(hj))
+    if Lw == L and W >= 5:      # the phase-planar wire packs whole codes rows
+        y = _pallas(codes, lens, table, k, w, slide, lean)
+        tk, hk = jops.binseg_l2_device(jnp.asarray(y), jnp.asarray(nw), jump=5, min_size=2)
+        np.testing.assert_array_equal(t.numpy(), np.asarray(tk))
+        np.testing.assert_array_equal(has.numpy(), np.asarray(hk))
+    assert not has[:2].any() and (W < 10 or has[2:].any())
+
+
+@pytest.mark.parametrize("case", ["n_windows", "jump", "min_size", "k", "device"])
+def test_greedy_boundary_refusals(case):
+    """What the wrapper refuses before any launch, whatever the device.
+    (What only the kernel's launcher can refuse, a read whose wire, y and
+    one match plane pass a block's shared memory, is a card-only case of
+    tests/test_torch_cuda.py.)"""
+    wire = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.full((2,), 256, dtype=torch.int32)
+    tab = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", 7)))
+    nw = torch.full((2,), 27, dtype=torch.int32)
+    kw = dict(k=7, window_size=100, slide=6, L=256, lean=True)
+    bad, match = {
+        "n_windows": (lambda: cuda_kernels.greedy_boundary(wire, lens, tab, nw[:1], **kw),
+                      "does not match"),
+        "jump": (lambda: cuda_kernels.greedy_boundary(wire, lens, tab, nw, jump=0, **kw),
+                 "jump >= 1"),
+        "min_size": (lambda: cuda_kernels.greedy_boundary(wire, lens, tab, nw, min_size=0,
+                                                          **kw), "min_size >= 1"),
+        "k": (lambda: cuda_kernels.greedy_boundary(wire, lens, tab, nw, **dict(kw, k=16)),
+              "15"),
+        "device": (lambda: cuda_kernels.greedy_boundary(
+            wire.to("meta"), lens.to("meta"), tab.to("meta"), nw.to("meta"), **kw),
+            "cuda or cpu"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        bad()
+    t, has = cuda_kernels.greedy_boundary(wire, lens, tab, nw, **kw)
+    assert t.shape == (2,) and has.shape == (2,)
+
+
+def test_greedy_boundary_empty_geometry():
+    """No offsets per window: the signal is K everywhere, every candidate
+    ties and the smallest t wins, as after greedy_signal."""
+    wire = torch.zeros((2, 64), dtype=torch.uint8)
+    lens = torch.full((2,), 256, dtype=torch.int32)
+    tab = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", 5)))
+    nw = torch.tensor([42, 3], dtype=torch.int32)
+    kw = dict(k=5, window_size=5, slide=6, L=256, lean=True)
+    t, has = cuda_kernels.greedy_boundary(wire, lens, tab, nw, **kw)
+    want = tops.binseg_l2(cuda_kernels.greedy_signal(wire, lens, tab, **kw), nw)
+    assert torch.equal(t, want[0]) and torch.equal(has, want[1])
+    assert t.tolist() == [5, 5] and has.tolist() == [True, False]

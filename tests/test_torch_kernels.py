@@ -8,6 +8,7 @@ is compiled and compared only on a card (tests/test_torch_cuda.py and
 chip_smoke.py).  Integer outputs: exact equality."""
 
 import os
+import re
 import stat
 
 import numpy as np
@@ -163,7 +164,8 @@ def test_cpu_wrapper_takes_the_plain_version_and_counts_nothing():
     assert cuda_kernels.LAUNCHES == before
     cuda_kernels.reset_launch_counts()
     assert cuda_kernels.LAUNCHES == {"sum_boundary": 0, "sum_signal": 0, "binseg_l2": 0,
-                                     "greedy_signal": 0, "greedy_counts": 0}
+                                     "greedy_boundary": 0, "greedy_signal": 0,
+                                     "greedy_counts": 0, "step1_counts": 0}
 
 
 def test_sum_signal_envelope_raises():
@@ -177,16 +179,34 @@ def test_sum_signal_envelope_raises():
                                 k=16, window_size=100, slide=6, L=256, lean=True)
 
 
-def test_tile_geometry():
-    # main path: a full 256-window tile in ~9.8 KB of shared memory
-    tile, smem = cuda_kernels.tile_geometry(5, 6, 95, 3312)
-    assert tile == 256 and smem == 6 * (255 * 6 + 95) + 4
-    assert cuda_kernels.tile_geometry(5, 6, 95, 10) == (10, 6 * (9 * 6 + 95) + 4)
-    # wide windows shrink the tile to fit a Hopper block's shared memory
-    tile, smem = cuda_kernels.tile_geometry(5, 200, 20000, 1000)
-    assert tile < 256 and smem <= 232448
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernels.tile_geometry(5, 1, 50000, 10)
+@pytest.mark.parametrize("name", sorted(cuda_kernels.ENTRY_ARGS))
+def test_entry_args_match_the_c_signatures(name):
+    """Every kernel sizes its own shared memory in its launcher, so what
+    the wrappers hand over is the C signature alone: the ctypes
+    declaration of each entry has a pointer where the extern "C" function
+    in csrc/ takes a pointer and an int where it takes an int, in order,
+    and every entry counts its launches."""
+    text = "".join(src.read_text() for src in cuda_kernels.sources())
+    found = re.findall(r'extern "C" int topsicle_%s\(([^)]*)\)' % name, text)
+    assert len(found) == 1, f"topsicle_{name} is defined {len(found)} times in csrc/"
+    params = [" ".join(a.split()) for a in found[0].split(",")]
+    kinds = "".join("p" if "*" in a else "i" for a in params)
+    assert all(a.startswith(("const void*", "void*", "int ")) for a in params), params
+    assert kinds == cuda_kernels.ENTRY_ARGS[name]
+    assert params[-1] == "void* stream" and name in cuda_kernels.LAUNCHES
+
+
+def test_every_header_is_included_and_hashed():
+    """The sources that read the wire share csrc/wire.cuh, and the fused
+    entries csrc/binseg.cuh; both are part of the library's name."""
+    heads = [h.name for h in cuda_kernels.headers()]
+    assert heads == ["binseg.cuh", "wire.cuh"]
+    includes = {src.name: set(re.findall(r'#include "(\w+\.cuh)"', src.read_text()))
+                for src in cuda_kernels.sources()}
+    assert includes == {"binseg.cu": {"binseg.cuh"},
+                        "greedy_signal.cu": {"binseg.cuh", "wire.cuh"},
+                        "step1_counts.cu": {"wire.cuh"},
+                        "sum_signal.cu": {"binseg.cuh", "wire.cuh"}}
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -251,13 +271,13 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     compiles = [ln for ln in lines if " -c " in ln]
     assert sorted(ln.split()[-1] for ln in compiles) == \
         sorted(str(p) for p in cuda_kernels.sources())
-    assert len(cuda_kernels.sources()) == 3 and len(lines) == 4
+    assert len(cuda_kernels.sources()) == 4 and len(lines) == 5
     assert "-shared" in lines[-1]
-    assert sum(tok.endswith(".o") for tok in lines[-1].split()) == 3
-    assert so.with_suffix(".log").read_text().count("ptxas info") == 4
+    assert sum(tok.endswith(".o") for tok in lines[-1].split()) == 4
+    assert so.with_suffix(".log").read_text().count("ptxas info") == 5
     assert sorted(p.name for p in (tmp_path / "build").iterdir()) == [so.with_suffix(".log").name,
                                                                        so.name]
-    assert cuda_kernels.build_library() == so and len(calls.read_text().splitlines()) == 4
+    assert cuda_kernels.build_library() == so and len(calls.read_text().splitlines()) == 5
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):

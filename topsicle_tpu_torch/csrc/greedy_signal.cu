@@ -1,156 +1,266 @@
-// Step-2 greedy window-count kernel for Hopper (sm_90a).
+// Step-2 greedy window-count kernel for Hopper (sm_90a), with the exact
+// changepoint fused behind it: one thread block per read.
 //
 // Replaces: topsicle_tpu/ops/pallas_kernels.py::_signal_kernel (the TPU
-// kernel behind step2_signal_pallas and _lean).  Computes, for every read
-// b, window w and table entry e, exactly what ops/match.py::window_counts
-// computes: the greedy non-overlapping count of entry e over the J
-// offsets p = w*slide + j, j < J.  A match at offset j is taken when
-// j >= next_free, which then becomes j + k; the chain restarts at every
-// window.  This is re.finditer's count, exact for every table: periodic
-// entries, duplicate entries (each counted on its own), any K, k <= 15.
+// kernel behind step2_signal_pallas and _lean) and, in the fused entry, the
+// changepoint program that follows it
+// (topsicle_tpu/ops/changepoint.py::binseg_l2_device).  Computes, for every
+// read b, window w and table entry e, exactly what
+// ops/match.py::window_counts computes: the greedy non-overlapping count of
+// entry e over the J offsets p = w*slide + j, j < J.  A match at offset j
+// is taken when j >= next_free, which then becomes j + k; the chain
+// restarts at every window.  This is re.finditer's count, exact for every
+// table: periodic entries, duplicate entries (each counted on its own), a
+// negative entry (a non-ACGT k-mer, which matches nothing), any K, k <= 15.
 //
-// Two entry points share one kernel body:
-//   topsicle_greedy_signal  y[b, w] = sum_e max(count, 1)   int32 [B, W]
-//   topsicle_greedy_counts  count[b, e, w], no floor         int32 [B, K, W]
-// The second gives --rawcountpattern/--plot their per-entry counts and,
-// with one window covering every offset (W = 1, J = L - k + 1), step 1's
-// greedy count per read end.
+// Three entry points share one kernel body:
+//   topsicle_greedy_signal    y[b, w] = sum_e max(count, 1)    int32 [B, W]
+//   topsicle_greedy_counts    count[b, e, w], no floor          int32 [B, K, W]
+//   topsicle_greedy_boundary  y stays in shared memory, csrc/binseg.cuh
+//                             finds the changepoint there, and only
+//                             (t int64, has uint8) leave the SM
+// The second gives --rawcountpattern/--plot their per-entry counts.
 //
-// Input is the PLAIN wire sum_signal.cu reads (no phase-planar layout):
-// base 4q+s at bits 2s of byte q (io.batch.pack_codes / pack_batch), plus
-// per-read lengths (lean) or an invalid bit-plane (dense).
+// Input is the PLAIN wire sum_signal.cu reads (csrc/wire.cuh): 2 bits a
+// base, plus per-read lengths (lean) or an invalid bit-plane (dense).
 //
-// What bounds it on this card: the sequential carry.  Each (window,
-// entry) lane walks its J offsets in order, one shared-memory read, one
-// compare and two selects per offset: ~B*W*K*J steps (564 M at B = 128,
-// W = 3312, K = 14, J = 95), with no device-memory traffic beyond the
-// L/4-byte wire and the output.  The design keeps every intermediate on
-// chip: one block per (read, tile of windows) stages the tile's bases in
-// shared memory once and writes one int32 rolling code per position there
-// (-1 where a base is invalid or past the length); lanes take consecutive
-// windows of one entry, so a warp reads positions `slide` words apart and
-// writes the counts mode's output coalesced.  The signal mode floors and
-// sums the K counts of a window with shared-memory atomics, so only y
-// leaves the SM.  (Warp-per-window find-first-set on packed match words,
-// or a scan over the periodic entries only, are later work.)
+// What bounds it on this card: operations, not bytes.  A batch of 128
+// reads of 19,968 bases moves 0.64 MB in and 1.7 MB of y out (0.7 us at
+// 3.35 TB/s; the fused entry 9 bytes a read out).  The function needs one
+// compare a (position, entry), and per (window, entry) the J match bits of
+// the window, their count, the floor and an add: a few operations a
+// 32-bit word of bits, plus one step per match that a self-overlapping
+// entry's greedy chain takes.  A walk over all J offsets of every (window,
+// entry) is not among the needs: windows overlap (15-fold at slide 6,
+// J = 93), and the carry only matters where two matches can overlap.
+//
+// The design:
+//   A. match planes.  The read's wire row (and invalid plane) comes into
+//      shared memory once with 16-byte loads.  A warp takes 32 consecutive
+//      positions; each lane forms its position's rolling code and validity
+//      from the wire's bit stream, and for entry e
+//      __ballot_sync(valid && code == table[e]) IS the 32-bit word of
+//      entry e's match plane.  One compare a (position, entry), once, not
+//      once a window.  Planes [K][words] stay in shared memory (14 x 625
+//      words = 35 KB at k = 7, L = 19,968); where K planes do not fit a
+//      block, the table goes in groups of entries that do, and y collects
+//      the groups' sums.
+//   B. a lane a window, looping over the entries: the window's J bits come
+//      word by word out of the plane (a funnel shift each).  An entry
+//      whose matches cannot overlap (no period below k, found from its
+//      code) counts by popcount.  A self-overlapping entry counts by
+//      find-first-set: clear the bits below next_free, take the lowest,
+//      next_free = its offset + k; one step per match taken.  The floored
+//      sum over the entries stays in the lane's register: no atomics.
+//      Lanes of a warp hold neighbouring windows and the same entry, so
+//      they read neighbouring words and branch alike.
+//   C. the fused entry runs binseg.cuh's block function on y in shared
+//      memory.
+// A batch of 128 reads gives 128 of the card's 132 SMs one block each, so
+// a block is 1,024 threads: 32 warps hide the latency of the shared-memory
+// reads and of the ballots, eight of which are in flight at a time (on an
+// H100 at 700 W, k = 7: 512 threads and one ballot at a time took 0.057 ms
+// a batch, this 0.043).
+// A geometry of which one plane, the wire and y pass a block's 227 KB is
+// refused by the launcher.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "binseg.cuh"
+#include "wire.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;                      // ballots in flight in step A
+constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
 
-template <bool kSignal>
-__global__ void __launch_bounds__(kThreads)
-greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride,
+enum Mode { kSignal, kCounts, kBoundary };
+
+using topsicle::round16;
+
+// Dynamic shared-memory layout, in bytes: wire | invalid plane | table (and
+// kUnroll entries of -1 behind it, which match nothing) | self-overlap
+// flags | y (the fused entry) | Kg match planes of `pw` words.  One
+// function for the launcher and the kernel.
+struct Layout {
+  long long inv, tab, flag, y, planes, total;
+};
+
+__host__ __device__ inline Layout layout(int L, int W, int K, int Kg, int pw, bool dense,
+                                         bool boundary) {
+  Layout s;
+  s.inv = topsicle::wire_row_bytes(L);
+  s.tab = s.inv + (dense ? topsicle::invalid_row_bytes(L) : 0);
+  s.flag = s.tab + round16(4 * (K + kUnroll));
+  s.y = s.flag + round16(K);
+  s.planes = s.y + (boundary ? 4ll * ((W + 3) & ~3) : 0);
+  s.total = s.planes + 4ll * Kg * pw;
+  return s;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec16,
               const int32_t* __restrict__ lengths,
-              const uint8_t* __restrict__ invalid, int invalid_stride,
+              const uint8_t* __restrict__ invalid, int invalid_stride, int invalid_vec16,
               const int32_t* __restrict__ table, int K, int k,
-              int slide, int J, int L, int W, int tile_w,
-              int32_t* __restrict__ out) {
+              int slide, int J, int L, int W, int Kg, int pw,
+              int32_t* __restrict__ out,
+              const int32_t* __restrict__ n_windows, int jump, int min_size,
+              long long* __restrict__ t_out, uint8_t* __restrict__ has_out) {
   extern __shared__ __align__(16) unsigned char smem[];
 
-  const int b = blockIdx.y;
-  const int w0 = blockIdx.x * tile_w;
-  const int n_win = min(tile_w, W - w0);
-  const int max_pos = (tile_w - 1) * slide + J;   // positions of a full tile
-  const int n_pos = (n_win - 1) * slide + J;      // positions this tile reads
-  const int n_base = n_pos + k - 1;
-  const int p0 = w0 * slide;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const bool dense = invalid != nullptr;
+  const Layout lay = layout(L, W, K, Kg, pw, dense, kMode == kBoundary);
+  uint8_t* wire8 = smem;
+  uint8_t* inv8 = smem + lay.inv;
+  int32_t* tab = reinterpret_cast<int32_t*>(smem + lay.tab);
+  uint8_t* overlaps = smem + lay.flag;
+  int32_t* y = reinterpret_cast<int32_t*>(smem + lay.y);
+  uint32_t* planes = reinterpret_cast<uint32_t*>(smem + lay.planes);
 
-  int32_t* code = reinterpret_cast<int32_t*>(smem);               // [max_pos]
-  int32_t* ysum = code + max_pos;                                  // [tile_w]
-  uint8_t* base = reinterpret_cast<uint8_t*>(ysum + tile_w);       // [max_pos + k - 1]
-
-  // ---- stage the tile's bases: code 0..3, or 4 for an invalid base ----
-  const uint8_t* prow = packed + static_cast<size_t>(b) * packed_stride;
-  const int len = lengths != nullptr ? lengths[b] : L;
-  const uint8_t* irow =
-      invalid != nullptr ? invalid + static_cast<size_t>(b) * invalid_stride : nullptr;
-  for (int i = threadIdx.x; i < n_base; i += blockDim.x) {
-    const int g = p0 + i;
-    uint8_t c = 4;
-    if (g < L && g < len) {
-      c = (prow[g >> 2] >> ((g & 3) * 2)) & 3;
-      if (irow != nullptr && ((irow[g >> 3] >> (g & 7)) & 1)) c = 4;
-    }
-    base[i] = c;
-  }
-  if (kSignal) {
-    for (int t = threadIdx.x; t < n_win; t += blockDim.x) ysum[t] = 0;
+  // ---- stage the row, the plane and the table ----
+  topsicle::stage_row_padded(wire8, packed + static_cast<size_t>(b) * packed_stride,
+                             (L + 3) / 4, static_cast<int>(lay.inv), packed_vec16 != 0,
+                             threadIdx.x, kThreads);
+  if (dense)
+    topsicle::stage_row_padded(inv8, invalid + static_cast<size_t>(b) * invalid_stride,
+                               (L + 7) / 8, static_cast<int>(lay.tab - lay.inv),
+                               invalid_vec16 != 0, threadIdx.x, kThreads);
+  for (int e = threadIdx.x; e < K + kUnroll; e += kThreads) {
+    tab[e] = e < K ? table[e] : -1;
+    if (e < K) overlaps[e] = topsicle::self_overlaps(table[e], k);
   }
   __syncthreads();
 
-  // ---- per position: base-4 rolling code, -1 if any base is invalid ----
-  for (int i = threadIdx.x; i < n_pos; i += blockDim.x) {
-    int32_t c = 0;
-    uint32_t bad = 0;
-    for (int j = 0; j < k; ++j) {
-      const uint32_t v = base[i + j];
-      bad |= v >> 2;
-      c |= static_cast<int32_t>(v & 3) << (2 * j);
-    }
-    code[i] = bad ? -1 : c;
-  }
-  __syncthreads();
+  const int len = lengths != nullptr ? max(0, min(lengths[b], L)) : L;
+  const topsicle::WireRow row = topsicle::wire_row(wire8, dense ? inv8 : nullptr, k, len);
+  const int n_pos = len - k + 1;          // positions whose k-mer lies inside the read
+  const int n_words = (J + 31) >> 5;      // plane words a window's bits come from
+  const uint32_t last_mask = (J & 31) ? (1u << (J & 31)) - 1u : ~0u;
 
-  // ---- per (window, entry): the greedy walk over the J offsets ----
-  for (int idx = threadIdx.x; idx < n_win * K; idx += blockDim.x) {
-    const int t = idx % n_win;
-    const int e = idx / n_win;
-    // valid codes are >= 0 and invalid positions hold -1, so a negative
-    // entry (a non-ACGT k-mer) must match neither
-    const int32_t te = table[e] >= 0 ? table[e] : -2;
-    const int32_t* c = code + t * slide;
-    int nf = 0;
-    int cnt = 0;
-    for (int j = 0; j < J; ++j) {
-      const int take = (c[j] == te) & (j >= nf);
-      nf = take ? j + k : nf;
-      cnt += take;
-    }
-    if (kSignal) {
-      atomicAdd(&ysum[t], max(cnt, 1));
-    } else {
-      out[(static_cast<size_t>(b) * K + e) * W + w0 + t] = cnt;
-    }
-  }
+  for (int e0 = 0; e0 < K; e0 += Kg) {
+    const int n_e = min(Kg, K - e0);
 
-  // ---- signal mode: the floored sums leave the SM ----
-  if (kSignal) {
+    // ---- A. the match planes of entries e0 .. e0 + n_e - 1 ----
+    for (int word = warp; word < pw; word += kWarps) {
+      const int p = word * 32 + lane;
+      const bool valid = p < n_pos && topsicle::kmer_valid(row, p);
+      const uint32_t code = valid ? topsicle::kmer_code(row, p) : 0u;
+      for (int j0 = 0; j0 < n_e; j0 += 32) {
+        const int nj = min(32, n_e - j0);
+        uint32_t mine = 0;
+        if (word * 32 < n_pos) {          // else the whole word lies past the read
+          // kUnroll independent ballots at a time; an entry past the group
+          // lands on a lane that stores nothing
+          const int32_t* te = tab + e0 + j0;
+          for (int j = 0; j < nj; j += kUnroll) {
+#pragma unroll
+            for (int u = 0; u < kUnroll; ++u) {
+              const uint32_t bits = __ballot_sync(
+                  0xffffffffu, valid && code == static_cast<uint32_t>(te[j + u]));
+              if (lane == j + u) mine = bits;
+            }
+          }
+        }
+        if (lane < nj) planes[(j0 + lane) * pw + word] = mine;
+      }
+    }
     __syncthreads();
-    int32_t* orow = out + static_cast<size_t>(b) * W;
-    for (int t = threadIdx.x; t < n_win; t += blockDim.x) orow[w0 + t] = ysum[t];
+
+    // ---- B. per window: the entries' greedy counts ----
+    for (int w = threadIdx.x; w < W; w += kThreads) {
+      const int s = w * slide;
+      const int sh = s & 31;
+      const uint32_t* first = planes + (s >> 5);
+      int32_t acc = 0;
+      for (int e = 0; e < n_e; ++e) {
+        int32_t cnt = 0;
+        if (s < n_pos) {                  // else the window starts past the read: no match
+          const uint32_t* pl = first + e * pw;
+          const bool chain = overlaps[e0 + e];      // the same for every lane
+          uint32_t lo = pl[0];
+          int next_free = 0;
+#pragma unroll 4
+          for (int i = 0; i < n_words; ++i) {
+            const uint32_t hi = pl[i + 1];
+            uint32_t m = __funnelshift_r(lo, hi, sh);
+            if (i == n_words - 1) m &= last_mask;
+            cnt += chain ? topsicle::take_greedy(m, 32 * i, k, next_free) : __popc(m);
+            lo = hi;
+          }
+        }
+        if (kMode == kCounts) {
+          out[(static_cast<size_t>(b) * K + e0 + e) * W + w] = cnt;
+        } else {
+          acc += max(cnt, 1);
+        }
+      }
+      // the same thread meets window w in every group of entries
+      if (kMode == kSignal) {
+        int32_t* yw = out + static_cast<size_t>(b) * W + w;
+        *yw = e0 == 0 ? acc : *yw + acc;
+      } else if (kMode == kBoundary) {
+        y[w] = e0 == 0 ? acc : y[w] + acc;
+      }
+    }
+    __syncthreads();      // the next group's planes, or the changepoint's reads of y
+  }
+
+  // ---- C. the changepoint of y, in the same block ----
+  if (kMode == kBoundary) {
+    __shared__ topsicle::BinsegScratch scratch;
+    topsicle::binseg_block<kThreads>(y, W, static_cast<long long>(n_windows[b]), jump,
+                                     min_size, scratch, t_out + b, has_out + b);
   }
 }
 
-template <bool kSignal>
-int launch(const void* packed, int packed_stride, const void* lengths,
-           const void* invalid, int invalid_stride, const void* table, int K,
-           int k, int slide, int J, int L, int W, int B, int tile_w,
-           int smem_bytes, void* out, void* stream) {
+// Launch on `stream`; returns cudaGetLastError() (0 on success), or -2
+// when the wire, y and one match plane do not fit a block's shared memory.
+template <int kMode>
+int launch(const void* packed, int packed_stride, const void* lengths, const void* invalid,
+           int invalid_stride, const void* table, int K, int k, int slide, int J, int L,
+           int W, int B, void* out, const void* n_windows, int jump, int min_size,
+           void* t_out, void* has_out, void* stream) {
+  const bool dense = invalid != nullptr;
+  // plane words: through the word after the last one a window's bits start
+  // in, an odd count so that the lanes' stores of step A spread over banks
+  const long long pw = (((static_cast<long long>(W - 1) * slide) >> 5) + ((J + 31) >> 5) + 1) | 1;
+  const long long fixed = layout(L, W, K, 0, 0, dense, kMode == kBoundary).total;
+  if (fixed + 4 * pw > kSmemLimit) return -2;
+  const int fit = static_cast<int>((kSmemLimit - fixed) / (4 * pw));     // planes a block holds
+  const int n_groups = (K + fit - 1) / fit;
+  const int Kg = (K + n_groups - 1) / n_groups;
+  const int smem_bytes = static_cast<int>(fixed + 4 * pw * Kg);
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        greedy_kernel<kSignal>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        greedy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid((W + tile_w - 1) / tile_w, B);
-  greedy_kernel<kSignal><<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), packed_stride,
+  using topsicle::aligned16;
+  greedy_kernel<kMode><<<B, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(invalid), invalid_stride,
-      static_cast<const int32_t*>(table), K, k, slide, J, L, W, tile_w,
-      static_cast<int32_t*>(out));
+      dense && aligned16(invalid, invalid_stride),
+      static_cast<const int32_t*>(table), K, k, slide, J, L, W, Kg, static_cast<int>(pw),
+      static_cast<int32_t*>(out), static_cast<const int32_t*>(n_windows), jump, min_size,
+      static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Both launch on `stream` and return cudaGetLastError() (0 on success).
 // Pointers are device pointers; exactly one of `lengths` (lean wire) and
-// `invalid` (dense wire) is non-null.  `smem_bytes` is the dynamic shared
-// memory the caller computed for `tile_w` windows per block.
+// `invalid` (dense wire) is non-null.  Needs J >= 1, W >= 1, B >= 1,
+// K >= 1, k <= 15.  Window w reads offsets w*slide + j, j < J; offsets past
+// L - k never match.
 
 // y int32 [B, W]: sum over the K entries of max(count, 1).
 extern "C" int topsicle_greedy_signal(const void* packed, int packed_stride,
@@ -158,10 +268,9 @@ extern "C" int topsicle_greedy_signal(const void* packed, int packed_stride,
                                       const void* invalid, int invalid_stride,
                                       const void* table, int K, int k,
                                       int slide, int J, int L, int W, int B,
-                                      int tile_w, int smem_bytes,
                                       void* out, void* stream) {
-  return launch<true>(packed, packed_stride, lengths, invalid, invalid_stride,
-                      table, K, k, slide, J, L, W, B, tile_w, smem_bytes, out, stream);
+  return launch<kSignal>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
+                         slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
 }
 
 // counts int32 [B, K, W], no floor.
@@ -170,8 +279,22 @@ extern "C" int topsicle_greedy_counts(const void* packed, int packed_stride,
                                       const void* invalid, int invalid_stride,
                                       const void* table, int K, int k,
                                       int slide, int J, int L, int W, int B,
-                                      int tile_w, int smem_bytes,
                                       void* out, void* stream) {
-  return launch<false>(packed, packed_stride, lengths, invalid, invalid_stride,
-                       table, K, k, slide, J, L, W, B, tile_w, smem_bytes, out, stream);
+  return launch<kCounts>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
+                         slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
+}
+
+// The signal, followed in the block by the changepoint: `n_windows` [B]
+// int32, `t_out` [B] int64, `has_out` [B] uint8 (0 or 1).  Needs
+// jump >= 1 and min_size >= 1.
+extern "C" int topsicle_greedy_boundary(const void* packed, int packed_stride,
+                                        const void* lengths,
+                                        const void* invalid, int invalid_stride,
+                                        const void* table, int K, int k,
+                                        int slide, int J, int L, int W, int B,
+                                        const void* n_windows, int jump, int min_size,
+                                        void* t_out, void* has_out, void* stream) {
+  return launch<kBoundary>(packed, packed_stride, lengths, invalid, invalid_stride, table, K,
+                           k, slide, J, L, W, B, nullptr, n_windows, jump, min_size, t_out,
+                           has_out, stream);
 }

@@ -22,13 +22,11 @@
 //                           the changepoint there, and only (t int64,
 //                           has uint8) leave the SM: 9 bytes a read
 //
-// Input is the PLAIN wire the engine already packs: base 4q+s sits at
-// bits 2s of byte q (io.batch.pack_codes / pack_batch), plus either
-// per-read lengths (lean) or an invalid bit-plane whose bit s of byte q
-// marks position 8q+s (dense).  Read as a little-endian bit stream, the
-// rolling code at position p is the 2k bits at bit 2p of the wire, and
-// the validity of its k bases the k bits at bit p of the invalid plane:
-// one funnel shift and a mask each, no per-base work.
+// Input is the PLAIN wire the engine already packs (csrc/wire.cuh): 2 bits
+// a base, plus either per-read lengths (lean) or an invalid bit-plane
+// (dense).  The rolling code of a position and the validity of its k
+// bases are bit fields of it: one funnel shift and a mask each, no
+// per-base work.
 //
 // What bounds it on this card: operations, not bytes.  The fused entry
 // moves 0.64 MB a batch of 128 reads of 19,968 bases (the wire, 4,992 B a
@@ -75,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "binseg.cuh"
+#include "wire.cuh"
 
 namespace {
 
@@ -83,7 +82,7 @@ constexpr int kMaxEntries = 31;
 constexpr int kLutMaxK = 7;                     // 4^7 words = 64 KB
 constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
 
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+using topsicle::round16;
 
 // Dynamic shared-memory layout, in bytes: wire | invalid plane | y (the
 // fused entry, and only when the windows go in several tiles: with one
@@ -100,8 +99,8 @@ __host__ __device__ inline Layout layout(int L, int W, int k, int Q, bool dense,
   Layout s;
   s.wire = 0;
   // a position reads the 32-bit word holding its first bit and the next one
-  s.inv = s.wire + round16((L + 3) / 4 + 8);
-  s.y = s.inv + (dense ? round16((L + 7) / 8 + 8) : 0);
+  s.inv = s.wire + topsicle::wire_row_bytes(L);
+  s.y = s.inv + (dense ? topsicle::invalid_row_bytes(L) : 0);
   s.grp = s.y + (boundary && tile_w < W ? round16(4 * W) : 0);
   s.lut = s.grp + kGroupArrays * round16(4 * (tile_w + Q));
   s.total = s.lut + (use_lut ? 4 << (2 * k) : 0);
@@ -118,39 +117,18 @@ inline int tile_windows(int L, int W, int k, int Q, bool dense, bool use_lut, bo
   return tile_w > 0 ? tile_w : 0;
 }
 
-// Bring `n` bytes of a row into shared memory: 16 bytes a thread where the
-// row allows it (the caller says), a byte a thread otherwise.
-__device__ __forceinline__ void stage_row(uint8_t* dst, const uint8_t* src, int n, bool vec16) {
-  if (vec16) {
-    const int n16 = (n + 15) >> 4;
-    const uint4* s4 = reinterpret_cast<const uint4*>(src);
-    uint4* d4 = reinterpret_cast<uint4*>(dst);
-    for (int i = threadIdx.x; i < n16; i += kThreads) d4[i] = s4[i];
-  } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = src[i];
-  }
-}
-
 struct Read {
-  const uint32_t* wire;     // the row as 32-bit words
-  const uint32_t* inv;      // the invalid plane as 32-bit words, or nullptr (lean)
+  topsicle::WireRow row;    // the staged wire row and invalid plane
   const uint32_t* lut;      // presence word by rolling code, or nullptr
   const int32_t* tab;       // the K table entries (no lut)
-  int K, k, len;            // len: the lean wire's valid length, clamped to [0, L]
-  uint32_t code_mask, base_mask;
+  int K;
 };
 
 // Presence word of position p: bit e set iff table entry e equals the
 // rolling code at p and all its k bases are valid.
 __device__ __forceinline__ uint32_t word_at(const Read& r, int p) {
-  if (r.inv != nullptr) {
-    const int wi = p >> 5;
-    if (__funnelshift_r(r.inv[wi], r.inv[wi + 1], p & 31) & r.base_mask) return 0;
-  } else if (p + r.k > r.len) {
-    return 0;
-  }
-  const int wi = p >> 4;
-  const uint32_t code = __funnelshift_r(r.wire[wi], r.wire[wi + 1], (p & 15) * 2) & r.code_mask;
+  if (!topsicle::kmer_valid(r.row, p)) return 0;
+  const uint32_t code = topsicle::kmer_code(r.row, p);
   if (r.lut != nullptr) return r.lut[code];
   uint32_t wd = 0;
   for (int e = 0; e < r.K; ++e) wd |= static_cast<uint32_t>(static_cast<int32_t>(code) == r.tab[e]) << e;
@@ -188,18 +166,13 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   uint32_t* lut = reinterpret_cast<uint32_t*>(smem + lay.lut);
 
   // ---- stage the row, the plane and the table ----
-  const int wire_bytes = (L + 3) / 4;
-  stage_row(wire8, packed + static_cast<size_t>(b) * packed_stride, wire_bytes,
-            packed_vec16 != 0);
-  for (int i = wire_bytes + threadIdx.x; i < lay.inv - lay.wire; i += kThreads)
-    if (!packed_vec16 || i >= round16(wire_bytes)) wire8[i] = 0;
-  if (dense) {
-    const int inv_bytes = (L + 7) / 8;
-    stage_row(inv8, invalid + static_cast<size_t>(b) * invalid_stride, inv_bytes,
-              invalid_vec16 != 0);
-    for (int i = inv_bytes + threadIdx.x; i < lay.y - lay.inv; i += kThreads)
-      if (!invalid_vec16 || i >= round16(inv_bytes)) inv8[i] = 0;
-  }
+  topsicle::stage_row_padded(wire8, packed + static_cast<size_t>(b) * packed_stride,
+                             (L + 3) / 4, lay.inv - lay.wire, packed_vec16 != 0,
+                             threadIdx.x, kThreads);
+  if (dense)
+    topsicle::stage_row_padded(inv8, invalid + static_cast<size_t>(b) * invalid_stride,
+                               (L + 7) / 8, lay.y - lay.inv, invalid_vec16 != 0,
+                               threadIdx.x, kThreads);
   if (threadIdx.x < K) tab[threadIdx.x] = table[threadIdx.x];
   if (use_lut) {
     const int n_codes = 1 << (2 * k);
@@ -213,15 +186,11 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   __syncthreads();
 
   Read r;
-  r.wire = reinterpret_cast<const uint32_t*>(wire8);
-  r.inv = dense ? reinterpret_cast<const uint32_t*>(inv8) : nullptr;
+  r.row = topsicle::wire_row(wire8, dense ? inv8 : nullptr, k,
+                             lengths != nullptr ? max(0, min(lengths[b], L)) : L);
   r.lut = use_lut ? lut : nullptr;
   r.tab = tab;
   r.K = K;
-  r.k = k;
-  r.len = lengths != nullptr ? max(0, min(lengths[b], L)) : L;
-  r.code_mask = (1u << (2 * k)) - 1u;
-  r.base_mask = (1u << k) - 1u;
 
   // y of the fused entry: its own array, or with one tile the suffix
   // sums' array, which each thread overwrites at the index it alone reads
@@ -344,9 +313,7 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
         sum_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const auto aligned16 = [](const void* p, int stride) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride % 16 == 0;
-  };
+  using topsicle::aligned16;
   sum_kernel<kBoundary><<<B, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),

@@ -3,14 +3,14 @@
 Counterpart of topsicle_tpu/models/telomere.py::TelomereScanModel for
 every table with k <= 15:
 
-  step 1: [B, 2, no_bp] end codes -> [B, 2, K] greedy counts: occurrence
-          sums in plain torch for aperiodic tables, else the CUDA greedy
-          kernel with one window over each end (ops.greedy_counts)
+  step 1: [B, 2, no_bp] end codes -> [B, 2, K] greedy counts: one kernel
+          for every table (ops.step1_counts, a block a read end)
   step 2: [B, L] tail codes -> (t, has): the window signal and its exact
-          changepoint.  One fused kernel (ops.sum_boundary) for aperiodic
-          tables with K <= 31; the greedy kernel (ops.greedy_signal)
-          followed by the changepoint kernel (ops.binseg_l2) for the
-          rest or when asked for
+          changepoint, in one fused kernel: ops.sum_boundary for
+          aperiodic tables with K <= 31, ops.greedy_boundary for the
+          rest.  A kernel asked for by name runs unfused: its signal
+          (ops.sum_signal or ops.greedy_signal), then the changepoint
+          kernel (ops.binseg_l2)
   rawcounts: [B, L] tail codes -> [B, K, W] per-entry greedy counts, no
           floor (ops.greedy_counts), for --rawcountpattern and --plot
 
@@ -89,9 +89,10 @@ class TorchScanModel:
     sum kernel when the table is inside its envelope (every entry
     aperiodic, K <= 31), and the greedy kernel otherwise; "greedy" always
     takes the greedy kernel.  "sum" outside the envelope warns and takes
-    the greedy kernel, as the JAX model does.  Auto runs the sum kernel
-    fused with the changepoint (one launch, ops.sum_boundary); an explicit
-    "sum" runs the two kernels one after the other (ops.sum_signal, then
+    the greedy kernel, as the JAX model does.  Auto runs its kernel fused
+    with the changepoint (one launch: ops.sum_boundary or
+    ops.greedy_boundary); a kernel asked for by name runs the two kernels
+    one after the other (ops.sum_signal or ops.greedy_signal, then
     ops.binseg_l2), the route the fused one can be checked against end
     to end.  The results are bit-identical."""
 
@@ -118,7 +119,7 @@ class TorchScanModel:
         self.aperiodic = all(aperiodic_mask(self.kmers))
         in_sum_envelope = self.aperiodic and self.K <= ops.cuda_kernels.MAX_ENTRIES
         self.kernel = "sum" if requested != "greedy" and in_sum_envelope else "greedy"
-        self.fused = self.kernel == "sum" and requested is None
+        self.fused = requested is None
         if requested == "sum" and self.kernel != "sum":
             warnings.warn("kernel 'sum' requires a table of aperiodic k-mers with "
                           f"K <= {ops.cuda_kernels.MAX_ENTRIES} entries; falling back "
@@ -166,13 +167,7 @@ class TorchScanModel:
         flat = ends_codes.reshape(B * 2, -1)
         lens = None if ends_len is None else np.repeat(ends_len, 2)
         a, b, L, lean = self._wire_to_device(self.pack_scan_batch(flat, lens))
-        if self.aperiodic:
-            codes = ops.unpack_wire(a, b, L, lean=lean)
-            counts = ops.greedy_count_sum(ops.match_positions(codes, self.table, self.k),
-                                          self.k)
-        else:
-            counts = ops.greedy_counts(a, b, self.table, k=self.k, J=L - self.k + 1, W=1,
-                                       slide=1, L=L, lean=lean)
+        counts = ops.step1_counts(a, b, self.table, k=self.k, L=L, lean=lean)
         return HostResult(counts.reshape(B, 2, -1))
 
     def step1_counts(self, ends_codes: np.ndarray,
@@ -182,18 +177,19 @@ class TorchScanModel:
     # ---- step 2 ------------------------------------------------------------
     def step2_boundary_launch_packed(self, packed, n_windows: np.ndarray
                                      ) -> Tuple[HostResult, HostResult]:
-        """(t, has) handles for a pack_scan_batch result.  The sum kernel
-        has the exact changepoint fused behind it (ops.sum_boundary, one
-        launch) unless it was asked for by name; then, and after the
-        greedy kernel, the changepoint is ops.binseg_l2's launch.  The
-        window counts ride one pinned copy, as the wire does."""
+        """(t, has) handles for a pack_scan_batch result.  The signal
+        kernel has the exact changepoint fused behind it (one launch)
+        unless it was asked for by name; then the changepoint is
+        ops.binseg_l2's launch.  The window counts ride one pinned copy,
+        as the wire does."""
         a, b, L, lean = self._wire_to_device(packed)
         n = self._to_device(np.asarray(n_windows, dtype=np.int32))
         geometry = dict(k=self.k, window_size=self.window_size, slide=self.slide, L=L,
                         lean=lean)
         if self.fused:
-            t, has = ops.sum_boundary(a, b, self.table, n, jump=self.jump,
-                                      min_size=self.min_size, **geometry)
+            boundary = ops.sum_boundary if self.kernel == "sum" else ops.greedy_boundary
+            t, has = boundary(a, b, self.table, n, jump=self.jump, min_size=self.min_size,
+                              **geometry)
         else:
             signal = ops.sum_signal if self.kernel == "sum" else ops.greedy_signal
             t, has = ops.binseg_l2(signal(a, b, self.table, **geometry), n,

@@ -5,10 +5,14 @@ the CPU, the card and the JAX reference."""
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device  # noqa: F401
 from topsicle_tpu_torch.ops.cuda_kernels import (  # noqa: F401
     binseg_l2,
+    greedy_boundary,
+    greedy_boundary_plain,
     greedy_counts,
     greedy_counts_plain,
     greedy_signal,
     greedy_signal_plain,
+    step1_counts,
+    step1_counts_plain,
     sum_boundary,
     sum_boundary_plain,
     sum_signal,
@@ -18,7 +22,6 @@ from topsicle_tpu_torch.ops.match import (  # noqa: F401
     MAX_ROLLING_K,
     boundary_sum_signal,
     greedy_count,
-    greedy_count_sum,
     match_positions,
     num_windows,
     rolling_codes,

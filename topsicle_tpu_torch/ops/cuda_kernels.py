@@ -10,12 +10,23 @@
   binseg_l2      csrc/binseg.cu         the exact changepoint alone
                  (csrc/binseg.cuh on a y in device memory; replaces the
                  program topsicle_tpu/ops/changepoint.py::binseg_l2_device);
-                 follows greedy_signal
-  greedy_signal  csrc/greedy_signal.cu  the step-2 window signal for every
-                 table (replaces pallas_kernels.py::_signal_kernel)
-  greedy_counts  csrc/greedy_signal.cu  the same kernel without the floor:
-                 [B, K, W] per-entry counts for rawcounts, and step 1's
-                 greedy count with one window over every offset
+                 follows sum_signal or greedy_signal
+  greedy_boundary  csrc/greedy_signal.cu  step 2 for every other table in
+                 one launch: the greedy window signal (replaces
+                 pallas_kernels.py::_signal_kernel) from match planes, with
+                 the changepoint behind it in the same block
+  greedy_signal  csrc/greedy_signal.cu  the same body with y [B, W] written
+                 to device memory instead
+  greedy_counts  csrc/greedy_signal.cu  the same body without the floor:
+                 [B, K, W] per-entry counts for rawcounts
+  step1_counts   csrc/step1_counts.cu   step 1 for every table: the greedy
+                 count of each entry over a whole read end, a block a row
+                 (replaces the programs models/telomere.py::_step1_counts
+                 and _step1_counts_lean of the JAX package)
+
+The three sources that read the wire share csrc/wire.cuh (staging a row,
+the rolling code and validity of a position, whether an entry's matches
+can overlap, the find-first-set take).
 
 Every csrc/*.cu is compiled with nvcc (one process per source, started
 together, then one link) into a single shared library with a plain C
@@ -43,8 +54,8 @@ import torch
 
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device
 from topsicle_tpu_torch.ops.match import (MAX_ROLLING_K, boundary_sum_signal,
-                                          match_positions, num_windows,
-                                          unpack_wire, window_counts,
+                                          greedy_count, match_positions,
+                                          num_windows, unpack_wire, window_counts,
                                           window_signal)
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -55,12 +66,24 @@ COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", 
 LINK_FLAGS = [*_ARCH, "-shared"]
 
 MAX_ENTRIES = 31            # sum_signal's presence word bits
-_TILE_WINDOWS = 256        # the greedy kernel's windows per block, before the clamp
-_SMEM_LIMIT = 232448 - 1024  # Hopper's per-block maximum, less the static table
 
 # Launches of each kernel made by its wrapper (and only there).
-LAUNCHES = {"sum_boundary": 0, "sum_signal": 0, "binseg_l2": 0, "greedy_signal": 0,
-            "greedy_counts": 0}
+LAUNCHES = {"sum_boundary": 0, "sum_signal": 0, "binseg_l2": 0, "greedy_boundary": 0,
+            "greedy_signal": 0, "greedy_counts": 0, "step1_counts": 0}
+
+# Calls of step 1's plain version, by device type: 0 on "cuda" for every
+# path on a card, as ops.changepoint.PLAIN_CALLS is for the changepoint.
+STEP1_PLAIN_CALLS = {"cpu": 0, "cuda": 0}
+
+
+# The C signature of each entry topsicle_<name>, a letter an argument: p a
+# pointer (or the stream), i an int.  ctypes passes an undeclared pointer as
+# a 32-bit int and cuts it, so every entry is declared from this table.
+_WIRE = "pippipiiiiiii"       # packed, stride, lengths, invalid, stride, table, K, k .. W, B
+ENTRY_ARGS = {"sum_boundary": _WIRE + "piippp", "sum_signal": _WIRE + "pp",
+              "binseg_l2": "piipiippp", "greedy_boundary": _WIRE + "piippp",
+              "greedy_signal": _WIRE + "pp", "greedy_counts": _WIRE + "pp",
+              "step1_counts": "pippipiiiipp"}
 
 
 def reset_launch_counts() -> None:
@@ -151,16 +174,10 @@ def load_library() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build_library()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            wire = [p, i, p, p, i, p, i, i, i, i, i, i, i]   # packed .. W, B
-            for fn, args in (
-                    ("topsicle_sum_signal", [*wire, p, p]),
-                    ("topsicle_sum_boundary", [*wire, p, i, i, p, p, p]),
-                    ("topsicle_binseg_l2", [p, i, i, p, i, i, p, p, p]),
-                    ("topsicle_greedy_signal", [*wire, i, i, p, p]),
-                    ("topsicle_greedy_counts", [*wire, i, i, p, p])):
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = ctypes.c_int
+            for name, args in ENTRY_ARGS.items():
+                fn = getattr(lib, f"topsicle_{name}")
+                fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int for a in args]
+                fn.restype = ctypes.c_int
             lib.topsicle_cuda_error_string.argtypes = [ctypes.c_int]
             lib.topsicle_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -168,27 +185,6 @@ def load_library() -> ctypes.CDLL:
 
 
 # ---- shared by the wrappers --------------------------------------------------
-
-def tile_geometry(k: int, slide: int, J: int, W: int, *, pos_bytes: int = 6,
-                  win_bytes: int = 0):
-    """(windows per block, dynamic shared-memory bytes) for a kernel whose
-    tile of T windows stages P = (T-1)*slide + J positions at `pos_bytes`
-    each, T windows at `win_bytes` each, and k - 1 more base codes.
-    The greedy kernel: an int32 rolling code and a base per position, an
-    int32 sum per window.  (The sum kernel holds a whole read per block
-    and sizes its own shared memory, see csrc/sum_signal.cu.)"""
-    tile = max(1, min(_TILE_WINDOWS, W))
-    while True:
-        pos = (tile - 1) * slide + J
-        smem = pos_bytes * pos + win_bytes * tile + k - 1
-        if smem <= _SMEM_LIMIT:
-            return tile, smem
-        if tile == 1:
-            raise ValueError(
-                f"{J} offsets per window need {smem} bytes of shared memory, "
-                f"more than a Hopper block holds ({_SMEM_LIMIT})")
-        tile //= 2
-
 
 def _check(t: torch.Tensor, name: str, dtype, ndim: int, device) -> None:
     if t.device != device:
@@ -221,9 +217,15 @@ def _check_wire(name: str, codes_wire: torch.Tensor, aux: torch.Tensor,
         _check(aux, "invalid_bits", torch.uint8, 2, dev)
         if aux.shape[0] != B or aux.shape[1] * 8 < L:
             raise ValueError(f"invalid_bits {tuple(aux.shape)} do not cover [{B}, {L}]")
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid limit (65535)")
     return dev
+
+
+def _check_boundary_args(name: str, n_windows: torch.Tensor, B: int, jump: int,
+                         min_size: int) -> None:
+    if n_windows.shape[0] != B:
+        raise ValueError(f"n_windows {tuple(n_windows.shape)} does not match batch {B}")
+    if jump < 1 or min_size < 1:
+        raise ValueError(f"{name} takes jump >= 1 and min_size >= 1, got {jump}, {min_size}")
 
 
 def _wire_args(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor, *,
@@ -312,10 +314,7 @@ def binseg_l2(y_int: torch.Tensor, n_windows: torch.Tensor, jump: int = 5,
     _check(y_int, "y_int", torch.int32, 2, dev)
     _check(n_windows, "n_windows", torch.int32, 1, dev)
     B, W = y_int.shape
-    if n_windows.shape[0] != B:
-        raise ValueError(f"n_windows {tuple(n_windows.shape)} does not match batch {B}")
-    if jump < 1 or min_size < 1:
-        raise ValueError(f"binseg_l2 takes jump >= 1 and min_size >= 1, got {jump}, {min_size}")
+    _check_boundary_args("binseg_l2", n_windows, B, jump, min_size)
     if B == 0 or W == 0:
         return (torch.zeros(B, dtype=torch.int64, device=dev),
                 torch.zeros(B, dtype=torch.bool, device=dev))
@@ -352,11 +351,7 @@ def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tenso
     dev = _check_wire("sum_boundary", codes_wire, aux, table, L, lean)
     _check(n_windows, "n_windows", torch.int32, 1, dev)
     B = codes_wire.shape[0]
-    if n_windows.shape[0] != B:
-        raise ValueError(f"n_windows {tuple(n_windows.shape)} does not match batch {B}")
-    if jump < 1 or min_size < 1:
-        raise ValueError(f"sum_boundary takes jump >= 1 and min_size >= 1, got {jump}, "
-                         f"{min_size}")
+    _check_boundary_args("sum_boundary", n_windows, B, jump, min_size)
     J = window_size - k
     W = num_windows(L, window_size, slide)
     if J <= 0 or W == 0 or B == 0:
@@ -371,7 +366,7 @@ def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tenso
     return t, has
 
 
-# ---- greedy_signal and greedy_counts ---------------------------------------
+# ---- greedy_boundary, greedy_signal and greedy_counts -------------------------
 
 def greedy_counts_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                         *, k: int, J: int, W: int, slide: int, L: int,
@@ -392,31 +387,48 @@ def greedy_signal_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torc
         W=num_windows(L, window_size, slide), slide=slide, L=L, lean=lean))
 
 
+def greedy_boundary_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                          n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
+                          L: int, lean: bool, jump: int = 5, min_size: int = 2):
+    """greedy_boundary's plain torch version: greedy_signal_plain, then
+    ops.changepoint.binseg_l2_device.  Runs on any device."""
+    y = greedy_signal_plain(codes_wire, aux, table, k=k, window_size=window_size,
+                            slide=slide, L=L, lean=lean)
+    return binseg_l2_device(y, n_windows, jump=jump, min_size=min_size)
+
+
+def _check_greedy(name: str, codes_wire: torch.Tensor, aux: torch.Tensor,
+                  table: torch.Tensor, k: int, L: int, lean: bool):
+    """The greedy wrappers' checks; the card of a CUDA wire, None for a
+    CPU one (which takes the plain version)."""
+    if k > MAX_ROLLING_K:
+        raise ValueError(f"{name} takes k <= {MAX_ROLLING_K}, got {k}")
+    if codes_wire.device.type == "cpu":
+        return None
+    return _check_wire(name, codes_wire, aux, table, L, lean)
+
+
 def greedy_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                   *, k: int, J: int, W: int, slide: int, L: int,
                   lean: bool) -> torch.Tensor:
     """Greedy non-overlapping counts [B, K, W] int32, no floor: window w
     reads offsets w*slide + j, j < J, of the first L bases (offsets
     past them never match).  Step 2's rawcounts take
-    J = window_size - k and W = num_windows(L, window_size, slide);
-    step 1 takes one window over every offset, J = L - k + 1, W = 1.
+    J = window_size - k and W = num_windows(L, window_size, slide).
     Wire and table as for sum_signal; any K, duplicates each counted,
     k <= 15.  Bit-identical to greedy_counts_plain."""
-    if k > MAX_ROLLING_K:
-        raise ValueError(f"greedy_counts takes k <= {MAX_ROLLING_K}, got {k}")
-    if codes_wire.device.type == "cpu":
+    dev = _check_greedy("greedy_counts", codes_wire, aux, table, k, L, lean)
+    if dev is None:
         return greedy_counts_plain(codes_wire, aux, table, k=k, J=J, W=W, slide=slide,
                                    L=L, lean=lean)
-    dev = _check_wire("greedy_counts", codes_wire, aux, table, L, lean)
     B, K = codes_wire.shape[0], int(table.shape[0])
     W = max(W, 0)
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.zeros((B, K, W), dtype=torch.int32, device=dev)
-    tile, smem = tile_geometry(k, slide, J, W, pos_bytes=5, win_bytes=4)
     out = torch.empty((B, K, W), dtype=torch.int32, device=dev)
     _launch("greedy_counts", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            tile, smem, out.data_ptr())
+            out.data_ptr())
     return out
 
 
@@ -427,20 +439,84 @@ def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
     max(greedy count, 1), exact for every table (periodic, mixed,
     duplicates, any K; k <= 15).  Arguments as for sum_signal.
     Bit-identical to greedy_signal_plain."""
-    if k > MAX_ROLLING_K:
-        raise ValueError(f"greedy_signal takes k <= {MAX_ROLLING_K}, got {k}")
-    if codes_wire.device.type == "cpu":
+    dev = _check_greedy("greedy_signal", codes_wire, aux, table, k, L, lean)
+    if dev is None:
         return greedy_signal_plain(codes_wire, aux, table, k=k, window_size=window_size,
                                    slide=slide, L=L, lean=lean)
-    dev = _check_wire("greedy_signal", codes_wire, aux, table, L, lean)
     B, K = codes_wire.shape[0], int(table.shape[0])
     J = window_size - k
     W = num_windows(L, window_size, slide)
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.full((B, W), K, dtype=torch.int32, device=dev)
-    tile, smem = tile_geometry(k, slide, J, W, pos_bytes=5, win_bytes=4)
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
     _launch("greedy_signal", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            tile, smem, out.data_ptr())
+            out.data_ptr())
+    return out
+
+
+def greedy_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                    n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
+                    L: int, lean: bool, jump: int = 5, min_size: int = 2):
+    """Step 2 for every table in one launch: the window signal of
+    greedy_signal and, in the same block, its exact changepoint, so only
+    (t [B] int64, has [B] bool) reach device memory.  Wire and table as
+    for greedy_signal; n_windows [B] int32 valid-window counts.
+    Bit-identical to greedy_boundary_plain."""
+    dev = _check_greedy("greedy_boundary", codes_wire, aux, table, k, L, lean)
+    B, K = codes_wire.shape[0], int(table.shape[0])
+    _check_boundary_args("greedy_boundary", n_windows, B, jump, min_size)
+    if dev is None:
+        return greedy_boundary_plain(codes_wire, aux, table, n_windows, k=k,
+                                     window_size=window_size, slide=slide, L=L, lean=lean,
+                                     jump=jump, min_size=min_size)
+    _check(n_windows, "n_windows", torch.int32, 1, dev)
+    J = window_size - k
+    W = num_windows(L, window_size, slide)
+    if J <= 0 or W == 0 or B == 0 or K == 0:
+        # no k-mer fits a window: the signal is K in every window
+        return binseg_l2(torch.full((B, W), K, dtype=torch.int32, device=dev), n_windows,
+                         jump, min_size)
+    t = torch.empty(B, dtype=torch.int64, device=dev)
+    has = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch("greedy_boundary", dev,
+            *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
+            n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
+    return t, has
+
+
+# ---- step1_counts --------------------------------------------------------------
+
+def step1_counts_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                       *, k: int, L: int, lean: bool) -> torch.Tensor:
+    """step1_counts' plain torch version: unpack the wire, match, then
+    ops.match.greedy_count (one carry step per position, exact for every
+    table).  Runs on any device, and counts its calls by device type."""
+    dev = codes_wire.device
+    STEP1_PLAIN_CALLS[dev.type] = STEP1_PLAIN_CALLS.get(dev.type, 0) + 1
+    R, K = codes_wire.shape[0], int(table.shape[0])
+    if L < k or R == 0 or K == 0:
+        return torch.zeros((R, K), dtype=torch.int32, device=dev)
+    codes = unpack_wire(codes_wire, aux, L, lean=lean)
+    return greedy_count(match_positions(codes, table, k), k)
+
+
+def step1_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
+                 *, k: int, L: int, lean: bool) -> torch.Tensor:
+    """Step 1's greedy non-overlapping count [R, K] int32 of each table
+    entry over the first L bases of each row (R = 2 ends a read), for
+    every table: periodic, mixed, duplicates each counted, a -1 entry
+    matching nothing, any K, k <= 15.  Wire and table as for sum_signal.
+    Bit-identical to step1_counts_plain."""
+    dev = _check_greedy("step1_counts", codes_wire, aux, table, k, L, lean)
+    if dev is None:
+        return step1_counts_plain(codes_wire, aux, table, k=k, L=L, lean=lean)
+    R, K = codes_wire.shape[0], int(table.shape[0])
+    if L < k or R == 0 or K == 0:
+        return torch.zeros((R, K), dtype=torch.int32, device=dev)
+    out = torch.empty((R, K), dtype=torch.int32, device=dev)
+    _launch("step1_counts", dev, codes_wire.data_ptr(), codes_wire.shape[1],
+            aux.data_ptr() if lean else None,
+            None if lean else aux.data_ptr(), 0 if lean else aux.shape[1],
+            table.data_ptr(), K, k, L, R, out.data_ptr())
     return out

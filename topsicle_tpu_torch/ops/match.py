@@ -4,15 +4,15 @@ topsicle_tpu/ops/match.py, with the same layouts ([B, L] uint8 codes,
 window signal) and bit-identical integer results.
 
 Two counting paths, as in the JAX package:
-  - "sum" (boundary_sum_signal, greedy_count_sum): occurrence counting,
-    exact only for aperiodic tables (kmers.all_aperiodic), where no
-    k-mer self-overlaps and greedy counting needs no sequential scan;
+  - "sum" (boundary_sum_signal): occurrence counting, exact only for
+    aperiodic tables (kmers.all_aperiodic), where no k-mer
+    self-overlaps and greedy counting needs no sequential scan;
   - greedy (window_counts, greedy_count): the exact non-overlapping
     count for every table, a (next_free, count) carry over the offsets.
 
-These run on the CPU in the tests and, on the card, carry step 1 for
-aperiodic tables and serve as the plain versions the CUDA kernels
-(ops.cuda_kernels) are held against.
+These run on the CPU, and are the plain versions the CUDA kernels
+(ops.cuda_kernels) are held against on the card; no path on a card
+computes with them.
 """
 
 from __future__ import annotations
@@ -87,13 +87,6 @@ def match_positions(codes: torch.Tensor, table: torch.Tensor, k: int) -> torch.T
     val, ok = rolling_codes(codes, k)
     eq = val[..., None, :] == table.to(torch.int32)[:, None]
     return eq & ok[..., None, :]
-
-
-def greedy_count_sum(match: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain occurrence count per [.., K] row: the greedy non-overlapping
-    count whenever the table is aperiodic (callers gate on it)."""
-    del k
-    return match.sum(dim=-1, dtype=torch.int32)
 
 
 def window_counts(match: torch.Tensor, k: int, J: int, W: int, slide: int) -> torch.Tensor:
