@@ -36,6 +36,17 @@ line is printed):
                       are one run of A's, window 72 / slide 31 (a window's
                       bits straddle three plane words), window 200
                       (J > 96); y_int, [B, K, W] counts and (t, has)
+       the window-block grid of sum_signal, greedy_signal and
+                      greedy_counts (blocks of a read's windows, each staging
+                      only the bases its windows read), binseg_l2 behind it:
+                      reads of L = 1,048,576, past every one-block layout, so
+                      the wrappers take the grid themselves (2,048 windows a
+                      block), on the lean and dense wires, at slide 6 and at
+                      slide 1 / window 20, with ragged window counts (0, 3 and
+                      W among them); and the grid forced at L = 19,968 with
+                      1,000 windows a block (does not divide W) and 333 at
+                      slide 7 (blocks start at bases that are no multiple of 4
+                      or 8); each also against one block a read
        step1_counts:  [256, 1000] ends (rows of 1000, 0, 3 and k bases and
                       a run of A's among them) on both wires at CCCTAAA
                       k = 7 and k = 5, AAAAAAA, K = 33 (a second round of
@@ -60,6 +71,13 @@ line is printed):
        OracleEngine at that k byte for byte, each path must have launched
        exactly the kernels it runs, and the plain torch changepoint and
        the plain step 1 must have run 0 times on the card
+     then long scans, held the same way: --maxlengthtelo 60000 --slide 1
+       on 32 reads of 60-70 kbp at k = 5 and --telophrase 7 (y [W] alone
+       passes a block's shared memory, so the fused entries are out:
+       sum_signal or greedy_signal, then binseg_l2), and --maxlengthtelo
+       1000000 --telophrase 5 7 --rawcountpattern on 8 reads of 0.5-1 Mbp
+       (the window-block grid of all three entries); each run's log must
+       name the route it took
      then processes, each a CLI started with --device cuda that prints
      its launch counts (which must not be 0): on four seeded files of
      1,024 / 512 / 256 / 256 reads, one process (outputs byte-identical
@@ -74,7 +92,9 @@ line is printed):
      kernel's bound (bytes over the card's memory rate or the integer
      operations its function needs over the card's INT32 rate, whichever
      is larger, from this run's inputs; a kernel faster than its bound
-     fails the run: the count would be wrong), the step-2 launch paths (one
+     fails the run: the count would be wrong), the window-block grid at
+     B = 4 x L = 1,048,576 and, forced, at the default shape beside one
+     block a read, the step-2 launch paths (one
      model and two shards), and the end-to-end wall times, the
      multi-process ones included (on one card: process overhead)
 
@@ -116,6 +136,11 @@ RAW_FILE, RAW_READS = "part2.fastq.gz", FILE_READS[2]   # the --rawcountpattern 
 K16_PATTERN, K16_PHRASES, K16_READS = "CCCTAAACC", [9, 16], 256
 K16_CUTOFF = 0.15      # 16-mers of a noisy 9-bp repeat keep TRC near 0.25
 MP_TIMEOUT = 300       # seconds a multi-process run may take
+# long scans: reads, read lengths and telomere lengths of the two inputs
+LONG_READS, LONG_LENGTH, LONG_TELO = 32, (60000, 70000), (2000, 40000)
+MEGA_READS, MEGA_LENGTH, MEGA_TELO = 8, (500000, 1000000), (5000, 300000)
+LONG_ARGS = ["--maxlengthtelo", "60000"]             # at --slide 1: 59,805 windows a read
+MEGA_ARGS = ["--maxlengthtelo", "1000000", "--telophrase", "5", "7", "--rawcountpattern"]
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # 132 SMs x 64 INT32 lanes x 1.98 GHz: a quarter of the data sheet's 67
 # TFLOP/s of float32 (128 lanes, a fused multiply-add counted as two)
@@ -172,13 +197,14 @@ def _bound(n_bytes, n_ops):
             int(n_bytes), int(n_ops))
 
 
-def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
-    """Seeded reads of 9.5-22 kbp, in four kinds by index: forward
-    telomeric (a 200-5000 bp repeat with ~7% noise at the start), reverse
-    telomeric (the complementary repeat at the end), junk, and short or
-    N-rich.  Telomeric reads of the second half also carry N's in their
-    noise, so their step-2 batches travel on the dense wire.  Returns the
-    total bases written."""
+def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA", length=(9500, 22000),
+                 telo=(200, 5000)):
+    """Seeded reads of 9.5-22 kbp (or `length`), in four kinds by index:
+    forward telomeric (a 200-5000 bp repeat, or `telo`, with ~7% noise at
+    the start), reverse telomeric (the complementary repeat at the end),
+    junk, and short or N-rich.  Telomeric reads of the second half also
+    carry N's in their noise, so their step-2 batches travel on the dense
+    wire.  Returns the total bases written."""
     import numpy as np
 
     alpha = np.frombuffer(b"ACGTN", np.uint8)
@@ -189,10 +215,10 @@ def _write_fastq(path, rng, n_reads=4096, pattern="CCCTAAA"):
     with gzip.open(path, "wb", compresslevel=1) as fh:
         for i in range(n_reads):
             kind = i % 4
-            n = int(rng.integers(9500, 22000))
+            n = int(rng.integers(*length))
             seq = alpha[rng.integers(0, 4, n)]
             if kind in (0, 1):
-                tl = int(rng.integers(200, 5000))
+                tl = int(rng.integers(*telo))
                 rep = np.resize(fwd if kind == 0 else rev, tl)
                 noisy = rng.random(tl) < 0.07
                 rep[noisy] = alpha[rng.integers(0, 5 if i >= n_reads // 2 else 4,
@@ -563,7 +589,24 @@ def main() -> int:
     k16 = os.path.join(work, "k16.fastq.gz")
     _write_fastq(k16, np.random.default_rng(16), K16_READS, pattern=K16_PATTERN)
     print(f"[k16] wrote {K16_READS} reads of {K16_PATTERN}")
-    oracles = {5: _start_oracle(repo, os.path.join(work, "oracle5"), input_dir=fq, slide=6),
+    long_fq = os.path.join(work, "long.fastq.gz")
+    long_bp = _write_fastq(long_fq, np.random.default_rng(60), LONG_READS, length=LONG_LENGTH,
+                           telo=LONG_TELO)
+    mega_fq = os.path.join(work, "mega.fastq.gz")
+    mega_bp = _write_fastq(mega_fq, np.random.default_rng(61), MEGA_READS, length=MEGA_LENGTH,
+                           telo=MEGA_TELO)
+    print(f"[long] wrote {LONG_READS} reads of 60-70 kbp ({long_bp / 1e6:.1f} Mbp) and "
+          f"{MEGA_READS} of 0.5-1 Mbp ({mega_bp / 1e6:.1f} Mbp)")
+    # the longest oracles first: they walk every window of every passing read
+    oracles = {"mega": _start_oracle(repo, os.path.join(work, "oraclemega"), input_dir=mega_fq,
+                                     slide=6, maxlengthtelo=1000000, telophrase=[5, 7],
+                                     rawcountpattern=True),
+               "long5": _start_oracle(repo, os.path.join(work, "oraclelong5"),
+                                      input_dir=long_fq, slide=1, maxlengthtelo=60000),
+               "long7": _start_oracle(repo, os.path.join(work, "oraclelong7"),
+                                      input_dir=long_fq, slide=1, maxlengthtelo=60000,
+                                      telophrase=[7]),
+               5: _start_oracle(repo, os.path.join(work, "oracle5"), input_dir=fq, slide=6),
                7: _start_oracle(repo, os.path.join(work, "oracle7"), input_dir=fq, slide=6,
                                 telophrase=[7]),
                "files": _start_oracle(repo, os.path.join(work, "oraclefiles"),
@@ -576,7 +619,8 @@ def main() -> int:
                                     cutoff=[K16_CUTOFF])}
     try:
         return _phases(torch, name, smi, repo, work, fq, bp, oracles,
-                       (files, files_bp, k16, file_bp[2]))
+                       (files, files_bp, k16, file_bp[2]),
+                       (long_fq, long_bp, mega_fq, mega_bp))
     finally:
         for p in oracles.values():
             if p.poll() is None:
@@ -584,9 +628,10 @@ def main() -> int:
             p.wait()
 
 
-def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
+def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_inputs) -> int:
     """Phases 2-5; `oracles` are the running OracleEngine processes,
-    `mp_inputs` the four-file directory, its bases and the k>15 input."""
+    `mp_inputs` the four-file directory, its bases and the k>15 input,
+    `long_inputs` the long-scan files and their bases."""
     import numpy as np
 
     from topsicle_tpu_torch import cli, ops
@@ -594,7 +639,7 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     from topsicle_tpu_torch.io import writer
     from topsicle_tpu_torch.kmers import pack_kmer_table, telophrase_kmers
     from topsicle_tpu_torch.models import TorchScanModel
-    from topsicle_tpu_torch.ops import changepoint, cuda_kernels
+    from topsicle_tpu_torch.ops import changepoint, cuda_kernels, geometry
 
     dev = torch.device("cuda", 0)
     t_oracle = time.perf_counter()
@@ -623,6 +668,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     demo = pack_kmer_table(telophrase_kmers("CCCTAAA", 5))
     k7 = pack_kmer_table(telophrase_kmers("CCCTAAA", 7))
     max_err = {n: 0 for n in cuda_kernels.LAUNCHES}
+    GRID = ("sum_signal", "greedy_signal", "greedy_counts")     # entries with a grid
+    max_err.update({n + "[grid]": 0 for n in GRID})
 
     def wire(codes, lens, lean):
         if lean:
@@ -782,6 +829,80 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         codes, lens = ragged(_reads(rng, 16, L))
         greedy_case(f"w={w} slide={slide} k=7 dense ({what})", dirty(codes), lens, k7, 7,
                     w, slide, False)
+    # ---- 3. the window-block grid ---------------------------------------------
+    def grid_case(label, codes, lens, table, k, w, slide, lean, block_windows=None):
+        """sum_signal, greedy_signal and greedy_counts on the window-block
+        grid (the picker's own choice, or `block_windows` forced) against
+        their plain versions and one block a read (where a read fits one),
+        and binseg_l2 on each y against the plain changepoint."""
+        tab = torch.from_numpy(table).to(dev)
+        a, b = wire(codes, lens, lean)
+        Lw = a.shape[1] * 4
+        W = ops.num_windows(Lw, w, slide)
+        skw = dict(k=k, window_size=w, slide=slide, L=Lw, lean=lean)
+        ckw = dict(k=k, J=w - k, W=W, slide=slide, L=Lw, lean=lean)
+        nw = torch.from_numpy(ragged_windows(lens, w, slide, W)).to(dev)
+        found = 0
+        for kname, kw in (("sum_signal", skw), ("greedy_signal", skw), ("greedy_counts", ckw)):
+            entry = {"sum_signal": "sum", "greedy_signal": "greedy",
+                     "greedy_counts": "counts"}[kname]
+            route = geometry.pick_route(entry, L=Lw, W=W, K=len(table), k=k, window_size=w,
+                                        slide=slide, dense=not lean, fused=False)
+            wb = route.block_windows if block_windows is None else block_windows
+            assert 0 < wb < W, f"{label}: {kname} would not take the grid ({route})"
+            plan = cuda_kernels.launcher_plan(
+                "sum" if entry == "sum" else "greedy", L=Lw, W=W, K=len(table), k=k, J=w - k,
+                slide=slide, dense=not lean, boundary=False, block_windows=wb)
+            assert plan is not None and plan.n_blocks == -(-W // wb) > 1, (label, kname, plan)
+            kern = getattr(cuda_kernels, kname)
+            n0 = cuda_kernels.LAUNCHES[kname]
+            got = kern(a, b, tab, block_windows=block_windows, **kw)
+            want = getattr(cuda_kernels, kname + "_plain")(a, b, tab, **kw)
+            agree(kname + "[grid]", label, got, want)
+            assert cuda_kernels.LAUNCHES[kname] == n0 + 1
+            if route.kind != "grid":        # the read fits one block: the same bits there
+                agree(kname, label + " one block a read", kern(a, b, tab, block_windows=0, **kw),
+                      want)
+            if got.dim() == 2:
+                found = int(changepoints(f"{label} {kname}", got, want, nw)[1].sum())
+            del got, want
+        print(f"[kernel] window-block grid {label}: sum_signal, greedy_signal (y_int "
+              f"[{codes.shape[0]}, {W}]) and greedy_counts ([.., {len(table)}, {W}]) on "
+              f"{plan.n_blocks} blocks a read of {plan.block_windows} windows "
+              f"({'the picker' if block_windows is None else 'forced'}) bit-identical to "
+              f"plain torch, binseg_l2 behind them too (n_windows {nw[:4].tolist()}..), "
+              f"{found} reads with a boundary")
+
+    def long_reads(B, L, seed_pattern="CCCTAAA"):
+        """[B, L] reads with repeats of up to L / 2 bases and lengths from
+        L / 2 to L (the last row all of L)."""
+        codes = _reads(rng, B, L, pattern=seed_pattern)
+        telo = rng.integers(L // 8, L // 2, B)
+        pat = np.array(["ACGT".index(c) for c in seed_pattern], np.uint8)
+        keep = (np.arange(L)[None, :] < telo[:, None]) & (rng.random((B, L)) >= 0.05)
+        codes = np.where(keep, np.resize(pat, L)[None, :], codes).astype(np.uint8)
+        lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+        lens[-1] = L
+        codes[np.arange(L)[None, :] >= lens[:, None]] = 0xFF
+        return codes, lens
+
+    MEGA = 1 << 20            # 1,048,576 bases: the lean wire alone passes a block
+    codes, lens = long_reads(4, MEGA)
+    grid_case("L=1048576 slide=6 k=5 lean", codes, lens, demo, 5, 100, 6, True)
+    grid_case("L=1048576 slide=6 k=7 dense 2% invalid", dirty(codes), lens, k7, 7, 100, 6,
+              False)
+    codes, lens = long_reads(2, MEGA)
+    grid_case("L=1048576 slide=1 w=20 k=7 lean", codes, lens, k7, 7, 20, 1, True)
+    grid_case("L=1048576 slide=1 w=20 k=5 dense 2% invalid", dirty(codes), lens, demo, 5, 20,
+              1, False)
+    del codes
+    codes, lens = ragged(_reads(rng, 16, L))
+    grid_case("L=19968 slide=6 k=5 lean, 1,000 windows a block (3,312 = 3 x 1,000 + 312)",
+              codes, lens, demo, 5, 100, 6, True, block_windows=1000)
+    grid_case("L=19968 slide=7 k=7 dense, 333 windows a block (blocks start at bases "
+              "2,331, 4,662, ..: no multiple of 4 or 8)", dirty(codes), lens, k7, 7, 100, 7,
+              False, block_windows=333)
+
     # step 1: [B * 2 ends, no_bp]; rows of 1000, 0, 3 and k bases, a run of A's
     ends = _reads(rng, 256, 1000)
     ends[0, :400] = 0
@@ -829,15 +950,16 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     files, files_bp, k16, raw_bp = mp_inputs
     e2e = {}
 
-    def drive(label, out, oracle, launched, *extra, inp=fq, n_reads=4096, bases=bp):
+    def drive(label, out, oracle, launched, *extra, inp=fq, n_reads=4096, bases=bp,
+              slide=6, batch=128, logged=()):
         """One CLI path on the card, with the launch counts set to 0 just
-        before it and read just after."""
+        before it and read just after; `logged`: what its run log must say."""
         cuda_kernels.reset_launch_counts()
         changepoint.PLAIN_CALLS["cuda"] = cuda_kernels.STEP1_PLAIN_CALLS["cuda"] = 0
         t0 = time.perf_counter()
         rc = cli.main(["--inputDir", inp, "--outputDir", os.path.join(work, out), "--pattern",
-                       "CCCTAAA", "--slide", "6", "--batchSize", "128", "--device", "cuda",
-                       *extra])
+                       "CCCTAAA", "--slide", str(slide), "--batchSize", str(batch),
+                       "--device", "cuda", *extra])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(cuda_kernels.LAUNCHES)
@@ -851,6 +973,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
         log_text = open(os.path.join(work, out, "topsicle_run.log")).read()
         assert f"device: cuda:0 ({name})" in log_text, f"{label}: not run on the card"
         reader_line = [ln for ln in log_text.splitlines() if "reader: " in ln][0]
+        for text in logged:
+            assert text in log_text, f"{label}: no '{text}' in the run log"
         got, want = _outputs(os.path.join(work, out)), _outputs(os.path.join(work, oracle))
         assert sorted(got) == sorted(want), f"{label}: files {sorted(got)} vs {sorted(want)}"
         for fname in want:
@@ -879,6 +1003,30 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     n_raw = sum(n.startswith("rawcount_7_") for n in raw)
     assert n_raw > RAW_READS // 40, f"--rawcountpattern: {n_raw} rawcount CSVs"
     print(f"[e2e] --rawcountpattern: {n_raw} rawcount CSVs among them")
+    # long scans: past the fused entries (y [W] alone passes a block), then
+    # past every one-block layout (the window-block grid)
+    long_fq, long_bp, mega_fq, mega_bp = long_inputs
+    past = "is past the fused kernel's shared memory: "
+    drive("--maxlengthtelo 60000 --slide 1 k=5", "portlong5", "oraclelong5",
+          ["sum_signal", "binseg_l2", "step1_counts"], *LONG_ARGS, inp=long_fq,
+          n_reads=LONG_READS, bases=long_bp, slide=1, batch=8,
+          logged=["INFO: scan length 59904",
+                  past + "sum_signal then binseg_l2, one block a read"])
+    drive("--maxlengthtelo 60000 --slide 1 --telophrase 7", "portlong7", "oraclelong7",
+          ["greedy_signal", "binseg_l2", "step1_counts"], *LONG_ARGS, "--telophrase", "7",
+          inp=long_fq, n_reads=LONG_READS, bases=long_bp, slide=1, batch=8,
+          logged=[past + "greedy_signal then binseg_l2, one block a read"])
+    on_grid = f"on the window-block grid ({geometry.BLOCK_WINDOWS} windows a block)"
+    mega = drive("--maxlengthtelo 1000000 --telophrase 5 7 --rawcountpattern", "portmega",
+                 "oraclemega",
+                 ["sum_signal", "greedy_signal", "greedy_counts", "binseg_l2", "step1_counts"],
+                 *MEGA_ARGS, inp=mega_fq, n_reads=MEGA_READS, bases=mega_bp, batch=2,
+                 logged=["INFO: scan length 999936", past + "sum_signal then binseg_l2, "
+                         + on_grid, past + "greedy_signal then binseg_l2, " + on_grid,
+                         "takes greedy_counts, " + on_grid])
+    n_raw = sum(n.startswith("rawcount_") for n in mega)
+    assert n_raw >= 4, f"--maxlengthtelo 1000000 --rawcountpattern: {n_raw} rawcount CSVs"
+    print(f"[e2e] long scans: {n_raw} rawcount CSVs of 166,640 windows among the last run's")
     device_line = f"device: cuda:0 ({name})"
     mp = _multiprocess_phase(repo, work, files, "cuda", device_line)
     for label, (wall, launches) in mp.items():
@@ -979,6 +1127,59 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
     timed("greedy_counts", "rawcounts [128, 14, 3312] k=7 lean",
           lambda: cuda_kernels.greedy_counts(a, b, tab7, **ckw),
           lambda: cuda_kernels.greedy_counts_plain(a, b, tab7, **ckw), reps=10)
+    # The window-block grid.  First forced at the default shape, where no
+    # path of the engine takes it (256 blocks of at most 2,048 windows for
+    # 128 of 3,312), in turns with one block a read; then where the picker
+    # takes it, B = 4 reads of 1,048,576 bases, with binseg_l2 on that y.
+    grid_default = {}
+    for kname, kern in (
+            ("sum_signal", lambda wb: cuda_kernels.sum_signal(a, b, tab5, block_windows=wb,
+                                                               **kw5)),
+            ("greedy_signal", lambda wb: cuda_kernels.greedy_signal(a, b, tab7,
+                                                                     block_windows=wb, **kw7)),
+            ("greedy_counts", lambda wb: cuda_kernels.greedy_counts(a, b, tab7,
+                                                                     block_windows=wb, **ckw))):
+        q = {wb: [] for wb in (0, geometry.BLOCK_WINDOWS)}
+        for wb in (0, geometry.BLOCK_WINDOWS, geometry.BLOCK_WINDOWS, 0):
+            q[wb].append(_queued_ms(torch, lambda: kern(wb), rounds=5))
+        grid_default[kname] = (statistics.median(q[geometry.BLOCK_WINDOWS]),
+                               statistics.median(q[0]))
+        print(f"[time] {kname} B=128 L=19968 forced onto the window-block grid "
+              f"({geometry.BLOCK_WINDOWS} windows a block, 2 blocks a read): "
+              f"{grid_default[kname][0]:.4f} ms; one block a read in the same turns "
+              f"{grid_default[kname][1]:.4f} ms, queued back to back (CUDA events, medians; "
+              f"{smi})")
+    B4 = 4
+    codes4, lens4 = long_reads(B4, MEGA)
+    a4, b4 = wire(codes4, lens4, True)
+    W4 = ops.num_windows(MEGA, 100, 6)
+    nw4 = torch.from_numpy(batching.window_counts_for_lengths(lens4, 100, 6)).to(dev)
+    kw5g, kw7g = dict(kw5, L=MEGA), dict(kw7, L=MEGA)
+    ckwg = dict(ckw, W=W4, L=MEGA)
+    wire_bytes4 = a4.numel() + b4.numel() * 4
+    inside4 = int(positions_inside(lens4, 5, (W4 - 1) * 6 + 95).sum())
+    sum_ops4 = 8 * inside4 + 3 * -(-inside4 // 6) + 4 * B4 * W4
+    g_ops4 = greedy_ops(lens4, kmers7, 7, 93, W4, 6,
+                        cuda_kernels.greedy_counts_plain(a4, b4, tab7, **ckwg))
+    bounds["sum_signal[grid]"] = _bound(wire_bytes4 + B4 * W4 * 4, sum_ops4)
+    bounds["greedy_signal[grid]"] = _bound(wire_bytes4 + B4 * W4 * 4, g_ops4)
+    bounds["greedy_counts[grid]"] = _bound(wire_bytes4 + B4 * len(k7) * W4 * 4, g_ops4)
+    bounds["binseg_l2[grid]"] = _bound(B4 * W4 * 4 + B4 * 4 + B4 * 9,
+                                       B4 * (2 * W4 + 40 * (W4 // 5)))
+    shape4 = f"B={B4} L={MEGA}, {-(-W4 // geometry.BLOCK_WINDOWS)} blocks a read"
+    timed("sum_signal[grid]", f"{shape4} k=5 lean",
+          lambda: cuda_kernels.sum_signal(a4, b4, tab5, **kw5g),
+          lambda: cuda_kernels.sum_signal_plain(a4, b4, tab5, **kw5g), reps=5)
+    timed("greedy_signal[grid]", f"{shape4} k=7 lean",
+          lambda: cuda_kernels.greedy_signal(a4, b4, tab7, **kw7g),
+          lambda: cuda_kernels.greedy_signal_plain(a4, b4, tab7, **kw7g), reps=5)
+    timed("greedy_counts[grid]", f"rawcounts [{B4}, 14, {W4}] k=7 lean",
+          lambda: cuda_kernels.greedy_counts(a4, b4, tab7, **ckwg),
+          lambda: cuda_kernels.greedy_counts_plain(a4, b4, tab7, **ckwg), reps=5)
+    y4 = cuda_kernels.sum_signal(a4, b4, tab5, **kw5g)
+    timed("binseg_l2[grid]", f"y [{B4}, {W4}]", lambda: cuda_kernels.binseg_l2(y4, nw4),
+          lambda: ops.binseg_l2_device(y4, nw4), reps=5)
+    del codes4, a4, y4
     ends = _reads(rng, 256, 1000)
     ends_len = np.full(256, 1000, np.int32)
     ea, eb = wire(ends, ends_len, True)
@@ -1073,9 +1274,24 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
            ("greedy_counts", "greedy_signal.cu", greedy_kernel,
             "--telophrase 7 --rawcountpattern"),
            ("step1_counts", "step1_counts.cu", step1, "--telophrase 7")]
-    assert {n for n, *_ in rec} == set(cuda_kernels.LAUNCHES)
+    # the window-block grid of the three entries that have one, and the
+    # changepoint behind it: launches on the long-scan path that takes it
+    mega_run = "--maxlengthtelo 1000000 --telophrase 5 7 --rawcountpattern"
+    rec += [("sum_signal[grid]", "sum_signal.cu", sum_kernel, mega_run),
+            ("greedy_signal[grid]", "greedy_signal.cu", greedy_kernel, mega_run),
+            ("greedy_counts[grid]", "greedy_signal.cu", greedy_kernel, mega_run),
+            ("binseg_l2[grid]", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124", mega_run)]
+    max_err["binseg_l2[grid]"] = max_err["binseg_l2"]
+
+    def base(n):
+        return n.split("[")[0]
+
+    assert {base(n) for n, *_ in rec} == set(cuda_kernels.LAUNCHES)
     for n, _, _, run in rec:
-        assert e2e[run][1][n] > 0, f"{n} was not launched on the {run} path"
+        assert e2e[run][1][base(n)] > 0, f"{n} was not launched on the {run} path"
+    grid_keys = {n + "[grid]": {"block_windows": geometry.BLOCK_WINDOWS,
+                                "default_shape_grid_queued_ms": grid_default[n][0],
+                                "default_shape_queued_ms": grid_default[n][1]} for n in GRID}
     # step 1 at the main path's own table (k = 5) rides the step1_counts row
     k5 = {"k5_launches": e2e["k=5 auto"][1]["step1_counts"],
           "k5_ms": times["step1_counts k=5"][1], "k5_queued_ms": times["step1_counts k=5"][0],
@@ -1084,11 +1300,12 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs) -> int:
           "k5_bound_by": bounds["step1_counts k=5"][1]}
     print(json.dumps({"kernels": [{
         "name": n, "route": "cuda", "source": src + f, "replaces": r, "path": run,
-        "launches": e2e[run][1][n], "max_abs_err": max_err[n],
+        "launches": e2e[run][1][base(n)], "max_abs_err": max_err[n],
         "ms": times[n][1], "plain_ms": times[n][2], "bound_ms": bounds[n][0],
         "bound_by": bounds[n][1], "bound_bytes": bounds[n][2], "bound_operations": bounds[n][3],
         "library_ms": None, "queued_ms": times[n][0],
-        **(k5 if n == "step1_counts" else {})} for n, f, r, run in rec]}))
+        **(k5 if n == "step1_counts" else {}), **grid_keys.get(n, {})}
+        for n, f, r, run in rec]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@ from topsicle_tpu_torch.io import batch as batching
 from topsicle_tpu_torch.kmers import pack_kmer_table, telophrase_kmers
 from topsicle_tpu_torch.models import TorchScanModel
 from topsicle_tpu_torch.models.telomere import HostResult
-from topsicle_tpu_torch.ops import cuda_kernels
+from topsicle_tpu_torch.ops import cuda_kernels, geometry
 from topsicle_tpu_torch.parallel import ShardedScanModel
 from topsicle_tpu_torch.pipeline import TorchEngine
 
@@ -147,13 +147,29 @@ def test_boundary_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="min_size >= 1"):
         cuda_kernels.sum_boundary(a, b, table, torch.zeros(4, dtype=torch.int32, device=dev),
                                   min_size=0, **kw)
-    # a read too long for a block's shared memory is refused, not truncated
-    long = torch.zeros((1, 300_000), dtype=torch.uint8, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernels.sum_boundary(long, torch.tensor([1_200_000], dtype=torch.int32,
-                                                     device=dev), table,
-                                  torch.zeros(1, dtype=torch.int32, device=dev), k=5,
-                                  window_size=100, slide=6, L=1_200_000, lean=True)
+    # a read too long for a block's shared memory is not refused: the model
+    # asks the picker first and takes sum_signal on the window-block grid,
+    # then binseg_l2, bit-identical to the plain versions
+    codes, lens = _batch(2, 2, 1_200_000, True)
+    model = TorchScanModel(telophrase_kmers("CCCTAAA", 5), device=dev, window_size=100,
+                           slide=6)
+    assert model.route("sum", 1_200_000, True, fused=True) == \
+        ("sum", ("grid", geometry.BLOCK_WINDOWS))
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    n0 = dict(cuda_kernels.LAUNCHES)
+    t, has = model.step2_boundary(codes, nw, lens)
+    assert {m: c - n0[m] for m, c in cuda_kernels.LAUNCHES.items() if c != n0[m]} == \
+        {"sum_signal": 1, "binseg_l2": 1}
+    a, b = _wire(codes, lens, True, dev)
+    tp, hp = cuda_kernels.sum_boundary_plain(a, b, table, torch.from_numpy(nw).to(dev),
+                                             **dict(kw, L=1_200_000))
+    assert np.array_equal(t, tp.cpu().numpy()) and np.array_equal(has, hp.cpu().numpy())
+    assert has.all()
+    # the fused entry itself, handed what the picker would not hand it: the
+    # launcher's refusal is a fault of the caller, not another route
+    with pytest.raises(RuntimeError, match="shared memory"):
+        cuda_kernels.sum_boundary(a, b, table, torch.from_numpy(nw).to(dev),
+                                  **dict(kw, L=1_200_000))
 
 
 @pytest.mark.parametrize("phrase,kernel,launched", [
@@ -300,18 +316,26 @@ def test_greedy_wrapper_rejects_bad_inputs(dev):
         cuda_kernels.step1_counts(a.t().contiguous().t(), b, table, k=7, L=1024, lean=True)
     with pytest.raises(ValueError, match="cpu"):
         cuda_kernels.step1_counts(a, b.cpu(), table, k=7, L=1024, lean=True)
-    # what only the launchers can refuse: a read whose wire, y and one match
-    # plane pass a block's shared memory; four rows that pass it at step 1
-    long = torch.zeros((1, 300_000), dtype=torch.uint8, device=dev)
+    # a read whose wire and one match plane pass a block's shared memory is
+    # served on the window-block grid, bit-identical to the plain version;
+    # so are windows far past the read (they count 0)
+    codes, lens = _batch(3, 1, 1_200_000, True)
+    la, lb = _wire(codes, lens, True, dev)
+    lkw = dict(kw, L=1_200_000)
+    assert torch.equal(cuda_kernels.greedy_signal(la, lb, table, **lkw),
+                       cuda_kernels.greedy_signal_plain(la, lb, table, **lkw))
+    ckw = dict(k=7, J=93, W=400_000, slide=6, L=1024, lean=True)
+    assert torch.equal(cuda_kernels.greedy_counts(a, b, table, **ckw),
+                       cuda_kernels.greedy_counts_plain(a, b, table, **ckw))
+    # what is still refused: the fused entry handed a read the picker would
+    # not hand it (the launcher's refusal, a fault of the caller), and a
+    # step-1 row that passes a block
     n1 = torch.tensor([1_200_000], dtype=torch.int32, device=dev)
     n0 = dict(cuda_kernels.LAUNCHES)
-    for fn, args in ((cuda_kernels.greedy_signal, ()), (cuda_kernels.greedy_boundary, (n1,))):
-        with pytest.raises(ValueError, match="shared memory"):
-            fn(long, n1, table, *args, **dict(kw, L=1_200_000))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        cuda_kernels.greedy_boundary(la, lb, table, n1, **lkw)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernels.greedy_counts(a, b, table, k=7, J=93, W=400_000, slide=6, L=1024, lean=True)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_kernels.step1_counts(long, n1, table, k=7, L=1_200_000, lean=True)
+        cuda_kernels.step1_counts(la, lb, table, k=7, L=1_200_000, lean=True)
     assert cuda_kernels.LAUNCHES == n0          # a refused launch is not counted
 
 
@@ -444,3 +468,195 @@ def test_two_shards_on_one_card_match_single(dev, phrase):
     packed = sharded.pack_scan_batch(codes, lens)
     np.testing.assert_array_equal(np.asarray(sharded.rawcounts_launch_packed(packed)),
                                   single.rawcounts(codes, lens))
+
+
+# ---- the window-block grid and the picker ------------------------------------
+
+def _ragged_windows(lens, w, slide, W):
+    nw = batching.window_counts_for_lengths(lens, w, slide)
+    nw[:3] = np.minimum((0, 3, W), W)[:len(nw)]
+    return nw
+
+
+@pytest.mark.parametrize("k,w,slide,block_windows", [
+    (5, 100, 6, 1000),      # does not divide W
+    (5, 100, 7, 333),       # block starts at odd bases: no multiple of 4 or 8
+    (7, 20, 1, 2048),       # slide 1 / window 20
+    (5, 30, 1, 500),        # slide 1 on the aperiodic table, R = 0
+    (7, 100, 6, 37),        # many small blocks, a halo longer than a block's stride
+    (13, 100, 6, 512),      # no presence table (k > 7)
+    (5, 100, 6, 100_000),   # more windows a block than the read has: one block a read
+])
+@pytest.mark.parametrize("lean", [True, False])
+def test_grid_matches_plain(dev, k, w, slide, block_windows, lean):
+    """sum_signal, greedy_signal and greedy_counts forced onto the
+    window-block grid at a small L against their plain versions and
+    against one block a read, bit for bit; binseg_l2 follows with ragged
+    window counts (0, 3 and W among them)."""
+    B, L = 6, 16384 + 4 * 5     # rows of 4,101 bytes: byte loads on the odd rows
+    codes, lens = _batch(k + slide + block_windows, B, L, lean)
+    lens[3] = 700                # a read that ends inside its first blocks
+    codes[np.arange(L)[None, :] >= lens[:, None]] = 0xFF
+    kmers = telophrase_kmers("CCCTAAACCCTAAA"[:max(7, k)], k)
+    table = torch.from_numpy(pack_kmer_table(kmers)).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    Lw = a.shape[1] * 4
+    W = ops.num_windows(Lw, w, slide)
+    skw = dict(k=k, window_size=w, slide=slide, L=Lw, lean=lean)
+    ckw = dict(k=k, J=w - k, W=W, slide=slide, L=Lw, lean=lean)
+    nw = torch.from_numpy(_ragged_windows(lens, w, slide, W)).to(dev)
+    for name, kw, plain in (("sum_signal", skw, cuda_kernels.sum_signal_plain),
+                            ("greedy_signal", skw, cuda_kernels.greedy_signal_plain),
+                            ("greedy_counts", ckw, cuda_kernels.greedy_counts_plain)):
+        fn = getattr(cuda_kernels, name)
+        n0 = cuda_kernels.LAUNCHES[name]
+        got = fn(a, b, table, block_windows=block_windows, **kw)
+        torch.cuda.synchronize()
+        assert cuda_kernels.LAUNCHES[name] == n0 + 1
+        want = plain(a, b, table, **kw)
+        assert torch.equal(got, want), name
+        assert torch.equal(fn(a, b, table, block_windows=0, **kw), want), name
+        if got.dim() == 2:
+            t, has = cuda_kernels.binseg_l2(got, nw)
+            tp, hp = ops.binseg_l2_device(want, nw)
+            assert torch.equal(t, tp) and torch.equal(has, hp) and has.any()
+
+
+@pytest.mark.parametrize("body,k,slide,w,lean", [
+    ("sum", 5, 6, 100, True), ("sum", 5, 6, 100, False), ("greedy", 7, 6, 100, True),
+    ("greedy", 7, 6, 100, False), ("sum", 7, 1, 20, True), ("greedy", 7, 1, 20, False)])
+def test_long_read_takes_the_grid(dev, body, k, slide, w, lean):
+    """L = 1,048,576 is past every whole-read layout: the wrappers take the
+    window-block grid by themselves (no argument), bit-identical to the
+    plain versions; the greedy body's counts too."""
+    B, L = 2, 1_048_576
+    codes, lens = _batch(k + slide, B, L, lean)
+    lens[1] = L
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", k))).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    W = ops.num_windows(L, w, slide)
+    route = geometry.pick_route(body, L=L, W=W, K=int(table.shape[0]), k=k, window_size=w,
+                                slide=slide, dense=not lean)
+    assert route.kind == "grid" and route.block_windows == geometry.BLOCK_WINDOWS
+    skw = dict(k=k, window_size=w, slide=slide, L=L, lean=lean)
+    signal = getattr(cuda_kernels, body + "_signal")
+    y = signal(a, b, table, **skw)
+    y_p = getattr(cuda_kernels, body + "_signal_plain")(a, b, table, **skw)
+    assert torch.equal(y, y_p)
+    nw = torch.from_numpy(_ragged_windows(lens, w, slide, W)).to(dev)
+    t, has = cuda_kernels.binseg_l2(y, nw)
+    tp, hp = ops.binseg_l2_device(y_p, nw)
+    assert torch.equal(t, tp) and torch.equal(has, hp)
+    del y_p
+    if body == "greedy":
+        ckw = dict(k=k, J=w - k, W=W, slide=slide, L=L, lean=lean)
+        c = cuda_kernels.greedy_counts(a[:1], b[:1], table, **ckw)
+        assert torch.equal(c, cuda_kernels.greedy_counts_plain(a[:1], b[:1], table, **ckw))
+        assert torch.equal(c.clamp_min(1).sum(dim=1, dtype=torch.int32), y[:1])
+
+
+def _sweep():
+    """Geometries around every threshold of the layouts: scan lengths from
+    the default to a megabase and more, slides 1 to 1,000, windows 20 to
+    20,000, k 3 to 15, K 1 to 120, both wires."""
+    rng = np.random.default_rng(6)
+    fixed = [(L, slide, w, k, K)
+             for L in (512, 19968, 49664, 59904, 215040, 229888, 460288, 1048576, 4194304)
+             for slide, w, k, K in ((6, 100, 5, 14), (1, 100, 5, 14), (1, 20, 7, 14),
+                                    (6, 100, 7, 31), (7, 100, 13, 31), (6, 100, 7, 120),
+                                    (1000, 2000, 5, 14), (3, 20000, 15, 2))]
+    drawn = [(int(rng.integers(1, 2 ** rng.integers(9, 23))), int(rng.integers(1, 40)),
+              int(rng.integers(16, 400)), int(rng.integers(3, 16)), int(rng.integers(1, 60)))
+             for _ in range(400)]
+    return [g for g in fixed + drawn if g[3] < g[2]]
+
+
+def test_picker_agrees_with_launchers(dev):
+    """ops.geometry is the launchers' mirror: over a sweep of geometries
+    its plans equal what the built library's launchers would do (shared
+    memory, windows a block, tiles, groups), it never picks a launch that a
+    launcher refuses, and never leaves the fused route, or one block a
+    read, while the launcher would have taken it."""
+    n = {"fused": 0, "read": 0, "grid": 0}
+    for L, slide, w, k, K in _sweep():
+        W = ops.num_windows(L, w, slide)
+        if W == 0:
+            continue
+        for entry in ("sum", "greedy", "counts"):
+            if entry == "sum" and K > cuda_kernels.MAX_ENTRIES:
+                continue
+            body = "sum" if entry == "sum" else "greedy"
+            for dense in (False, True):
+                g = dict(L=L, W=W, K=K, k=k, J=w - k, slide=slide, dense=dense)
+                where = f"{entry} {g}"
+                for boundary in (True, False):
+                    for wb in (0, geometry.BLOCK_WINDOWS, 64, 1):
+                        mine = geometry._plan(body, L, W, K, k, w - k, slide, dense, boundary, wb)
+                        theirs = cuda_kernels.launcher_plan(body, boundary=boundary,
+                                                            block_windows=wb, **g)
+                        assert mine == theirs, f"{where} boundary={boundary} wb={wb}"
+                route = geometry.pick_route(entry, L=L, W=W, K=K, k=k, window_size=w,
+                                            slide=slide, dense=dense)
+                n[route.kind] += 1
+                fused_fits = entry != "counts" and \
+                    cuda_kernels.launcher_plan(body, boundary=True, **g) is not None
+                read_fits = cuda_kernels.launcher_plan(body, boundary=False, **g) is not None
+                assert route.fused == fused_fits, where
+                assert (route.kind == "read") == (read_fits and not fused_fits), where
+                if route.kind == "grid":
+                    taken = cuda_kernels.launcher_plan(body, boundary=False,
+                                                       block_windows=route.block_windows, **g)
+                    assert taken is not None and taken.n_blocks > 1, where
+    assert min(n.values()) > 20, n
+
+
+@pytest.mark.parametrize("phrase,kernel,slide,L,launched", [
+    (5, None, 1, 59904, ["sum_signal", "binseg_l2"]),       # y [W] alone passes a block
+    (7, None, 1, 59904, ["greedy_signal", "binseg_l2"]),
+    (5, None, 6, 59904, ["sum_boundary"]),                   # slide 6: still fused
+    (5, "sum", 6, 999936, ["sum_signal", "binseg_l2"]),      # the grid
+    (7, None, 6, 999936, ["greedy_signal", "binseg_l2"])])
+def test_model_routes_long_scans_on_card(dev, phrase, kernel, slide, L, launched):
+    """The model asks the picker before it launches: a scan past the fused
+    block runs its signal kernel and binseg_l2, names the route once in
+    its log, and gives the CPU model's (t, has) and rawcounts."""
+    kmers = telophrase_kmers("CCCTAAA", phrase)
+    lines = []
+    model = TorchScanModel(kmers, device=dev, window_size=100, slide=slide, kernel=kernel,
+                           log=lines.append)
+    cpu = TorchScanModel(kmers, device="cpu", window_size=100, slide=slide, kernel=kernel)
+    codes, lens = _batch(phrase + slide, 3, L, True)
+    nw = batching.window_counts_for_lengths(lens, 100, slide)
+    cuda_kernels.reset_launch_counts()
+    for _ in range(2):
+        t, has = model.step2_boundary(codes, nw, lens)
+    assert {n: c for n, c in cuda_kernels.LAUNCHES.items() if c} == dict.fromkeys(launched, 2)
+    tc, hc = cpu.step2_boundary(codes, nw, lens)
+    assert np.array_equal(t, tc) and np.array_equal(has, hc) and has.any()
+    assert len(lines) == (0 if launched == ["sum_boundary"] else 1), lines
+    if lines:
+        assert f"INFO: scan length {L}" in lines[0] and launched[0] in lines[0]
+        assert ("window-block grid" in lines[0]) == (L > 500_000)
+    if slide == 6:
+        raw = model.rawcounts(codes[:1], lens[:1])
+        assert np.array_equal(raw, cpu.rawcounts(codes[:1], lens[:1])) and raw.max() > 1
+
+
+def test_window_past_the_sum_body_on_card(dev):
+    """A window of 12,000 bases at slide 1: the sum body cannot hold one
+    window's groups, so the model takes the greedy body, fused; (t, has)
+    equal the CPU model's (the plain sum signal)."""
+    kmers = telophrase_kmers("CCCTAAA", 5)
+    lines = []
+    model = TorchScanModel(kmers, device=dev, window_size=12000, slide=1, log=lines.append)
+    cpu = TorchScanModel(kmers, device="cpu", window_size=12000, slide=1)
+    assert model.kernel == "sum"
+    codes, lens = _batch(12, 4, 19968, True)
+    lens[0] = 19968
+    nw = batching.window_counts_for_lengths(lens, 12000, 1)
+    cuda_kernels.reset_launch_counts()
+    t, has = model.step2_boundary(codes, nw, lens)
+    assert {n: c for n, c in cuda_kernels.LAUNCHES.items() if c} == {"greedy_boundary": 1}
+    tc, hc = cpu.step2_boundary(codes, nw, lens)
+    assert np.array_equal(t, tc) and np.array_equal(has, hc) and has[0]
+    assert len(lines) == 1 and "past the sum kernel's shared memory: greedy_boundary" in lines[0]

@@ -248,13 +248,16 @@ def test_kernel_sum_outside_envelope_warns_and_takes_greedy():
 
 
 @pytest.mark.parametrize("requested,want", [(None, "sum"), ("sum", "sum"),
-                                            ("greedy", "greedy"), (True, "greedy")])
+                                            ("greedy", "greedy"), (True, "greedy"),
+                                            (False, "sum")])
 def test_resolve_kernel(requested, want):
+    """False is TopsicleConfig's spelling of --kernel xla: the auto route."""
     tm = TorchScanModel(telophrase_kmers("CCCTAAA", 5), device="cpu", kernel=requested)
     assert tm.kernel == want
+    assert tm.fused == (requested is None or requested is False)
 
 
-@pytest.mark.parametrize("requested", [False, "xla", "bogus"])
+@pytest.mark.parametrize("requested", [0, "xla", "bogus"])
 def test_unknown_kernel_raises(requested):
     with pytest.raises(ValueError, match="unknown kernel"):
         TorchScanModel(telophrase_kmers("CCCTAAA", 5), device="cpu", kernel=requested)

@@ -1,8 +1,10 @@
 """--shardMode global in the port: GlobalScanModel against JAX's on one
 process, the lockstep control word and the gathers across two gloo
 processes, and global runs (one process, and two CLI processes on skewed
-inputs with jax blocked) byte-identical to JaxEngine's.  Integer device
-path: tolerance 0."""
+inputs with jax blocked) byte-identical to JaxEngine's; --resume, the
+--rawcountpattern/--plot extras, a stray file and a mixed table in global
+mode against JaxEngine and OracleEngine.  Integer device path: tolerance
+0."""
 
 import inspect
 import json
@@ -13,13 +15,18 @@ import pytest
 import torch
 
 from tests.test_multihost import _write_file
+from tests.test_pipeline import _write_synthetic_fastq
+from tests.test_reader_envelope import _good_fastq
+from tests.test_resume import _write_file as _write_resume_file
 from tests.test_torch_distributed import _outputs, cli_children, free_port, run_children
 from topsicle_tpu.config import TopsicleConfig
 from topsicle_tpu.io import batch as batching
 from topsicle_tpu.kmers import telophrase_kmers
 from topsicle_tpu.models import TelomereScanModel
+from topsicle_tpu.oracle import OracleEngine
 from topsicle_tpu.parallel.multihost import GlobalScanModel as JaxGlobalScanModel
 from topsicle_tpu.pipeline import JaxEngine
+from topsicle_tpu.utils import RunManifest
 from topsicle_tpu_torch.models import TorchScanModel
 from topsicle_tpu_torch.parallel.multihost import (GlobalScanModel, any_process_has_data,
                                                    or_across_processes)
@@ -192,3 +199,113 @@ def test_global_refusals(tmp_path):
                                      process_count=2), device="cpu")
     with pytest.raises(ValueError, match="pass --coordinator"):
         eng.run()
+
+
+# ---- global mode through the JAX suite's own cases ----------------------------
+
+def _aggregate_lines(out):
+    return [ln.split("]")[1] for ln in (out / "topsicle_run.log").read_text().splitlines()
+            if "median telomere" in ln or "recommended" in ln]
+
+
+def test_global_mode_resume_byte_identical(tmp_path):
+    """tests/test_resume.py::test_global_mode_resume_byte_identical on the
+    torch engine: drop file b's unit from the manifest of a global run;
+    the resumed CSV and aggregate lines equal the uninterrupted run's,
+    which equal JaxEngine's global run and the oracle."""
+    rng = random.Random(11)
+    d = tmp_path / "in"
+    d.mkdir()
+    _write_resume_file(str(d / "a.fastq.gz"), rng, 6)
+    _write_resume_file(str(d / "b.fastq.gz"), rng, 6)
+    out = tmp_path / "out"
+    kw = dict(input_dir=str(d), pattern="CCCTAAA", slide=6, batch_size=8)
+    glob = dict(kw, output_dir=str(out), shard_mode="global")
+    TorchEngine(TopsicleConfig(**glob), device="cpu").run()
+    csv1 = (out / "telolengths_all.csv").read_bytes()
+    lines1 = _aggregate_lines(out)
+    m = RunManifest(str(out))
+    key_b = [k for k in m._done if "b.fastq" in k]
+    assert key_b, "global mode must mark units done for resume"
+    del m._done[key_b[0]]
+    m.mark_done(str(d / "a.fastq.gz"), 5, m.rows_for(str(d / "a.fastq.gz"), 5))
+    TorchEngine(TopsicleConfig(resume=True, **glob), device="cpu").run()
+    assert (out / "telolengths_all.csv").read_bytes() == csv1
+    assert "resume: skipping completed unit" in (out / "topsicle_run.log").read_text()
+    assert lines1 and _aggregate_lines(out)[-len(lines1):] == lines1
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), shard_mode="global", **kw)).run()
+    OracleEngine(TopsicleConfig(output_dir=str(tmp_path / "o"), **kw)).run()
+    assert csv1 == (tmp_path / "j" / "telolengths_all.csv").read_bytes() == \
+        (tmp_path / "o" / "telolengths_all.csv").read_bytes()
+    assert csv1.count(b"\n") > 6
+
+
+def test_global_mode_extras_match_files_mode(tmp_path):
+    """tests/test_pipeline.py::test_global_mode_extras_match_files_mode on
+    the torch engine (synthetic input: the demo file is not in the
+    repository): --rawcountpattern and --plot in --shardMode global give
+    the files-mode artifacts, rawcount CSVs byte for byte, and JaxEngine's
+    global ones."""
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(13), n_reads=12)
+    kw = dict(input_dir=str(data), pattern="CCCTAAA", slide=6, batch_size=8,
+              rawcountpattern=True, plot=True)
+    def csvs(out):
+        return {p.name: p.read_bytes() for p in sorted(out.glob("*.csv"))}
+
+    outs = {}
+    for mode in ("files", "global"):
+        TorchEngine(TopsicleConfig(output_dir=str(tmp_path / mode), shard_mode=mode, **kw),
+                    device="cpu").run()
+        outs[mode] = csvs(tmp_path / mode)
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), shard_mode="global", **kw)).run()
+    outs["jax"] = csvs(tmp_path / "j")
+    raw = [n for n in outs["files"] if n.startswith("rawcount_")]
+    assert len(raw) >= 2
+    assert outs["files"] == outs["global"] == outs["jax"]
+    plots = sorted(p.name for p in (tmp_path / "files").glob("plot_*.png"))
+    assert plots and plots == sorted(p.name for p in (tmp_path / "global").glob("plot_*.png")) \
+        == sorted(p.name for p in (tmp_path / "j").glob("plot_*.png"))
+
+
+def test_global_mode_skips_stray_file(tmp_path):
+    """tests/test_reader_envelope.py::test_global_mode_skips_stray_file on
+    the torch engine: the same logged skip, the good file's two rows, and
+    the CSV of JaxEngine's global run and of the oracle on the good file
+    alone."""
+    indir = tmp_path / "in"
+    indir.mkdir()
+    _good_fastq(indir / "good.fastq")
+    (indir / "stray.txt").write_text("not sequence data\n")
+    kw = dict(input_dir=str(indir), pattern="CCCTAAA", slide=6, batch_size=8,
+              shard_mode="global", native_io=False)
+    results = TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw),
+                          device="cpu").run()
+    assert len(results) == 2
+    log_text = (tmp_path / "t" / "topsicle_run.log").read_text()
+    assert "skipping this file" in log_text and "stray.txt" in log_text
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    OracleEngine(TopsicleConfig(input_dir=str(indir / "good.fastq"),
+                                output_dir=str(tmp_path / "o"), pattern="CCCTAAA",
+                                slide=6)).run()
+    got = (tmp_path / "t" / "telolengths_all.csv").read_bytes()
+    assert got == (tmp_path / "j" / "telolengths_all.csv").read_bytes() == \
+        (tmp_path / "o" / "telolengths_all.csv").read_bytes()
+
+
+def test_global_mode_mixed_table(tmp_path):
+    """--shardMode global on CCCTAA k=5 (2 of 12 entries periodic): every
+    process's model takes the greedy kernel; the CSV and subsets equal
+    JaxEngine's global run and the oracle."""
+    data = tmp_path / "s.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(6), n_reads=24, pattern="CCCTAA")
+    kw = dict(input_dir=str(data), pattern="CCCTAA", slide=6, telophrase=[5])
+    TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), batch_size=8,
+                               shard_mode="global", **kw), device="cpu").run()
+    assert TorchScanModel(telophrase_kmers("CCCTAA", 5), device="cpu").kernel == "greedy"
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), batch_size=8,
+                             shard_mode="global", **kw)).run()
+    OracleEngine(TopsicleConfig(output_dir=str(tmp_path / "o"), **kw)).run()
+    got = _outputs(tmp_path / "t")
+    assert got == _outputs(tmp_path / "j") == _outputs(tmp_path / "o")
+    assert got["telolengths_all.csv"].count(b"\n") > 4 and len(got) == 2

@@ -1,8 +1,9 @@
 """TorchEngine and the `topsicle-torch` CLI end to end on the CPU: the
 CSV and subset FASTQ must be byte-identical to JaxEngine's and
 OracleEngine's (multi-k, --threads, --resume included), the CLI must run
-with jax blocked (the machine with the card has none), and every case
-the port does not serve must be refused with a clear error."""
+with jax blocked (the machine with the card has none), --kernel xla must
+run the auto route and say so, and an unknown kernel must be refused with
+a clear error."""
 
 import gzip
 import os
@@ -14,14 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_integration_matrix import _cohort
 from tests.test_pipeline import _write_synthetic_fastq
+from tests.test_reader_envelope import _good_fastq
 from tests.test_resume import _write_file
 from topsicle_tpu.config import TopsicleConfig
 from topsicle_tpu.oracle import OracleEngine
 from topsicle_tpu.pipeline import JaxEngine
 from topsicle_tpu.utils import RunManifest
 from topsicle_tpu_torch import cli
-from topsicle_tpu_torch.pipeline import TorchEngine
+from topsicle_tpu_torch.kmers import patterns_to_search
+from topsicle_tpu_torch.pipeline import XLA_KERNEL_LINE, TorchEngine
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBSET = "synthetic.fastq_trc_over_0.7.fastq"
@@ -264,24 +268,43 @@ def test_torch_engine_truncated_file_removes_partial_extras(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(use_pallas=False), "--kernel xla"),
+    (dict(use_pallas=False), None),      # --kernel xla: accepted, the auto route
     (dict(use_pallas="bogus"), "unknown kernel"),
 ])
 def test_torch_engine_refuses(kw, match, tmp_path):
+    """An unknown kernel is refused; use_pallas=False (--kernel xla) is
+    not: the engine builds, says so in the run log, and its model is the
+    auto one (fused, the sum kernel for this table)."""
     cfg = dict(input_dir="x", output_dir=str(tmp_path), pattern="CCCTAAA", slide=6)
     cfg.update(kw)
-    with pytest.raises(ValueError, match=match):
-        TorchEngine(TopsicleConfig(**cfg), device="cpu")
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            TorchEngine(TopsicleConfig(**cfg), device="cpu")
+        return
+    engine = TorchEngine(TopsicleConfig(**cfg), device="cpu")
+    assert XLA_KERNEL_LINE in (tmp_path / "topsicle_run.log").read_text()
+    model = engine._model(5, patterns_to_search("CCCTAAA", 5))
+    assert model.fused and model.kernel == "sum"
 
 
 @pytest.mark.parametrize("extra", [["--kernel", "xla"]])
 def test_cli_refuses(synthetic, tmp_path, extra):
-    data, _ = synthetic
-    rc = cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path),
-                   "--pattern", "CCCTAAA", "--device", "cpu", *extra])
-    assert rc == 2
-    assert "ROADMAP.md" in (tmp_path / "topsicle_run.log").read_text()
-    assert not (tmp_path / "telolengths_all.csv").exists()
+    """--kernel xla is no longer refused: the flag runs the auto route,
+    logs one line saying so, and gives the bytes of JaxEngine on its XLA
+    programs (use_pallas=False) and of the oracle."""
+    data, oracle = synthetic
+    rc = cli.main(["--inputDir", str(data), "--outputDir", str(tmp_path / "t"),
+                   "--pattern", "CCCTAAA", "--slide", "6", "--batchSize", "8",
+                   "--device", "cpu", *extra])
+    assert rc == 0
+    log = (tmp_path / "t" / "topsicle_run.log").read_text()
+    assert log.count(XLA_KERNEL_LINE) == 1 and "All telomere found" in log
+    JaxEngine(TopsicleConfig(input_dir=str(data), output_dir=str(tmp_path / "j"),
+                             pattern="CCCTAAA", slide=6, batch_size=8,
+                             use_pallas=False)).run()
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j") == _bytes(oracle)
+    assert _bytes(tmp_path / "t", SUBSET) == _bytes(tmp_path / "j", SUBSET) == \
+        _bytes(oracle, SUBSET)
 
 
 def test_cli_cuda_without_card_raises(synthetic, tmp_path, monkeypatch):
@@ -302,3 +325,89 @@ def test_cli_override_guard_precompile_and_trace(synthetic, tmp_path):
     assert cli.main(args + ["--override"]) == 0
     assert _bytes(tmp_path) == _bytes(oracle)
     assert cli.main(args + ["--precompile"]) == 0
+
+
+# ---- the JAX suite's envelope and integration cases on the torch engine ---------
+
+@pytest.mark.parametrize("use_native", [False, None])
+def test_midfile_truncation_contributes_nothing(tmp_path, use_native):
+    """tests/test_reader_envelope.py's case, both readers: a gzip that dies
+    mid-stream after full blocks contributes no row and stays un-done; the
+    CSV equals JaxEngine's on the same directory and the oracle's on the
+    good file alone."""
+    from topsicle_tpu_torch.utils.manifest import RunManifest as TorchManifest
+
+    indir = tmp_path / "in"
+    indir.mkdir()
+    _good_fastq(indir / "agood.fastq")
+    rng = np.random.default_rng(9)
+    buf = []
+    for i in range(12):
+        seq = ("CCCTAAA" * 220)[:1500] + "".join(rng.choice(list("ACGT"), 9100))
+        buf.append(f"@t{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    payload = gzip.compress("".join(buf).encode())
+    (indir / "btrunc.fastq.gz").write_bytes(payload[: len(payload) // 2])
+    kw = dict(input_dir=str(indir), pattern="CCCTAAA", slide=6, batch_size=4,
+              native_io=use_native)
+    results = TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw),
+                          device="cpu").run()
+    assert len(results) == 2 and all(r.read_id.startswith("read") for r in results)
+    log_text = (tmp_path / "t" / "topsicle_run.log").read_text()
+    assert "skipping this file" in log_text and "btrunc" in log_text
+    m = TorchManifest(str(tmp_path / "t"))
+    assert m.is_done(str(indir / "agood.fastq"), 5)
+    assert not m.is_done(str(indir / "btrunc.fastq.gz"), 5)
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    OracleEngine(TopsicleConfig(input_dir=str(indir / "agood.fastq"),
+                                output_dir=str(tmp_path / "o"), pattern="CCCTAAA",
+                                slide=6)).run()
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j") == _bytes(tmp_path / "o")
+    assert _bytes(tmp_path / "t").count(b"\n") == 3
+
+
+@pytest.mark.parametrize("use_native", [False, None])
+def test_engine_skips_stray_file_identically(tmp_path, use_native):
+    """tests/test_reader_envelope.py's case, both readers: a stray text file
+    in --inputDir is a logged skip, and the CSV equals JaxEngine's on the
+    same directory and the oracle's without the stray file."""
+    indir = tmp_path / "in"
+    indir.mkdir()
+    _good_fastq(indir / "good.fastq")
+    (indir / "stray.txt").write_text("not sequence data\n")
+    kw = dict(input_dir=str(indir), pattern="CCCTAAA", slide=6, batch_size=8,
+              native_io=use_native)
+    results = TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), **kw),
+                          device="cpu").run()
+    assert len(results) == 2
+    log_text = (tmp_path / "t" / "topsicle_run.log").read_text()
+    assert "skipping this file" in log_text and "stray.txt" in log_text
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), **kw)).run()
+    OracleEngine(TopsicleConfig(input_dir=str(indir / "good.fastq"),
+                                output_dir=str(tmp_path / "o"), pattern="CCCTAAA",
+                                slide=6)).run()
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j") == _bytes(tmp_path / "o")
+
+
+def test_all_features_vs_jax_and_oracle(tmp_path, monkeypatch):
+    """tests/test_integration_matrix.py's cohort with every subsystem at
+    once: two files, --telophrase 4 5 on CCCTAA (k=5 mixed: the greedy
+    kernel), the encoded-block cache (TOPSICLE_BLOCK_CACHE_MB), three
+    reader threads, batches of 8, maxlengthtelo 2048, N-bearing reads.
+    CSV and subsets equal JaxEngine's and the oracle's, and the block
+    cache is gone at the end."""
+    indir = _cohort(tmp_path)
+    monkeypatch.setenv("TOPSICLE_BLOCK_CACHE_MB", "64")
+    kw = dict(input_dir=str(indir), pattern="CCCTAA", telophrase=[4, 5],
+              maxlengthtelo=2048, batch_size=8)
+    eng = TorchEngine(TopsicleConfig(output_dir=str(tmp_path / "t"), threads=3, **kw),
+                      device="cpu")
+    assert eng._bc_enabled
+    eng.run()
+    JaxEngine(TopsicleConfig(output_dir=str(tmp_path / "j"), threads=3, **kw)).run()
+    OracleEngine(TopsicleConfig(output_dir=str(tmp_path / "o"), **kw)).run()
+    assert _bytes(tmp_path / "t") == _bytes(tmp_path / "j") == _bytes(tmp_path / "o")
+    subs = _outputs(tmp_path / "t", "*_trc_over_*")
+    assert subs and subs == _outputs(tmp_path / "j", "*_trc_over_*") == \
+        _outputs(tmp_path / "o", "*_trc_over_*")
+    assert not os.path.isdir(str(tmp_path / "t" / ".blockcache"))
+    assert b",4," in _bytes(tmp_path / "t") and b",5," in _bytes(tmp_path / "t")

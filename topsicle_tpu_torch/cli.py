@@ -4,10 +4,12 @@ torch engine, plus --device {cuda,cpu}.
 
 Every k-mer table is served (aperiodic, periodic and mixed, any number
 of entries; k > 15 on the host for that phrase), with --telophrase
-sweeps, --kernel auto|sum|greedy, --rawcountpattern, --plot, every card
-the process sees, files mode over processes (--processId/--processCount,
-with or without --coordinator) and --shardMode global.  Refused:
---kernel xla (the port has no XLA path).
+sweeps, --kernel auto|sum|greedy|xla (xla takes the auto route: the port
+has no XLA programs, and the bytes are the same), --rawcountpattern,
+--plot, any --maxlengthtelo (a scan too long for one thread block runs on
+the kernels' window-block grid), every card the process sees, files mode
+over processes (--processId/--processCount, with or without
+--coordinator) and --shardMode global.
 
 Run from a checkout with `python -m topsicle_tpu_torch.cli ...`, e.g. a
 mixed-table sweep on the card:
@@ -107,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "then); 'auto' runs the sum kernel fused with the changepoint in "
                         "one launch, 'sum' runs the two one after the other (the same "
                         "bytes out); 'greedy' always takes the greedy kernel, exact for "
-                        "every table; 'xla' is refused (the port has no XLA path)")
+                        "every table; 'xla' takes the auto route with one log line (the "
+                        "port has no XLA programs; the bytes are the same)")
     # --- multi-host (reference analog: manual SLURM job splitting,
     # README.md:261-270 — here it is automatic and deterministic) ---
     p.add_argument("--coordinator", metavar="HOST:PORT", type=str, default=None,

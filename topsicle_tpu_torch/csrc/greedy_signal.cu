@@ -1,5 +1,6 @@
 // Step-2 greedy window-count kernel for Hopper (sm_90a), with the exact
-// changepoint fused behind it: one thread block per read.
+// changepoint fused behind it: one thread block per read, or per block of a
+// long read's windows.
 //
 // Replaces: topsicle_tpu/ops/pallas_kernels.py::_signal_kernel (the TPU
 // kernel behind step2_signal_pallas and _lean) and, in the fused entry, the
@@ -61,8 +62,19 @@
 // reads and of the ballots, eight of which are in flight at a time (on an
 // H100 at 700 W, k = 7: 512 threads and one ballot at a time took 0.057 ms
 // a batch, this 0.043).
-// A geometry of which one plane, the wire and y pass a block's 227 KB is
-// refused by the launcher.
+//
+// Long reads: the window-block grid.  A read of which one plane, the staged
+// rows (and, fused, y [W]) pass a block's 227 KB cannot be one block.
+// topsicle_greedy_signal and topsicle_greedy_counts then launch on blocks
+// (read, window block) of `block_windows` windows, the second grid axis of
+// the TPU launcher (topsicle_tpu/ops/pallas_kernels.py::_signal_pallas_call):
+// a block stages the bytes its windows read (csrc/wire.cuh::window_block),
+// its match planes cover those positions only, and it writes its windows of
+// y [B, W], or its [K, windows] slab of the counts, to device memory.  The
+// chain restarts at every window, so nothing crosses a block's edge.  The
+// changepoint needs the whole of y: past the fused entry's limit the caller
+// runs csrc/binseg.cu on y instead (ops/geometry.py picks the route before
+// the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -83,8 +95,10 @@ using topsicle::round16;
 
 // Dynamic shared-memory layout, in bytes: wire | invalid plane | table (and
 // kUnroll entries of -1 behind it, which match nothing) | self-overlap
-// flags | y (the fused entry) | Kg match planes of `pw` words.  One
-// function for the launcher and the kernel.
+// flags | y (the fused entry) | Kg match planes of `pw` words.  `L` is the
+// bases a block stages and `W` the windows it serves (the read's, with one
+// block a read).  One function for the launcher and the kernel;
+// ops/geometry.py mirrors it.
 struct Layout {
   long long inv, tab, flag, y, planes, total;
 };
@@ -107,7 +121,7 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
               const int32_t* __restrict__ lengths,
               const uint8_t* __restrict__ invalid, int invalid_stride, int invalid_vec16,
               const int32_t* __restrict__ table, int K, int k,
-              int slide, int J, int L, int W, int Kg, int pw,
+              int slide, int J, int L, int W, int WB, int span, int Kg, int pw,
               int32_t* __restrict__ out,
               const int32_t* __restrict__ n_windows, int jump, int min_size,
               long long* __restrict__ t_out, uint8_t* __restrict__ has_out) {
@@ -117,7 +131,8 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const bool dense = invalid != nullptr;
-  const Layout lay = layout(L, W, K, Kg, pw, dense, kMode == kBoundary);
+  const topsicle::WindowBlock blk = topsicle::window_block(blockIdx.y, WB, W, L, slide, span);
+  const Layout lay = layout(span, WB, K, Kg, pw, dense, kMode == kBoundary);
   uint8_t* wire8 = smem;
   uint8_t* inv8 = smem + lay.inv;
   int32_t* tab = reinterpret_cast<int32_t*>(smem + lay.tab);
@@ -125,13 +140,15 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
   int32_t* y = reinterpret_cast<int32_t*>(smem + lay.y);
   uint32_t* planes = reinterpret_cast<uint32_t*>(smem + lay.planes);
 
-  // ---- stage the row, the plane and the table ----
-  topsicle::stage_row_padded(wire8, packed + static_cast<size_t>(b) * packed_stride,
-                             (L + 3) / 4, static_cast<int>(lay.inv), packed_vec16 != 0,
-                             threadIdx.x, kThreads);
+  // ---- stage the block's bytes of the row and the plane, and the table ----
+  topsicle::stage_row_padded(wire8,
+                             packed + static_cast<size_t>(b) * packed_stride + blk.pa / 4,
+                             (blk.n_bases + 3) / 4, static_cast<int>(lay.inv),
+                             packed_vec16 != 0, threadIdx.x, kThreads);
   if (dense)
-    topsicle::stage_row_padded(inv8, invalid + static_cast<size_t>(b) * invalid_stride,
-                               (L + 7) / 8, static_cast<int>(lay.tab - lay.inv),
+    topsicle::stage_row_padded(inv8,
+                               invalid + static_cast<size_t>(b) * invalid_stride + blk.pa / 8,
+                               (blk.n_bases + 7) / 8, static_cast<int>(lay.tab - lay.inv),
                                invalid_vec16 != 0, threadIdx.x, kThreads);
   for (int e = threadIdx.x; e < K + kUnroll; e += kThreads) {
     tab[e] = e < K ? table[e] : -1;
@@ -139,7 +156,10 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
   }
   __syncthreads();
 
-  const int len = lengths != nullptr ? max(0, min(lengths[b], L)) : L;
+  // Positions count from the block's first staged base; `len` is what of
+  // the read's valid length lies in the staged bases.
+  const int len = min((lengths != nullptr ? max(0, min(lengths[b], L)) : L) - blk.pa,
+                      blk.n_bases);
   const topsicle::WireRow row = topsicle::wire_row(wire8, dense ? inv8 : nullptr, k, len);
   const int n_pos = len - k + 1;          // positions whose k-mer lies inside the read
   const int n_words = (J + 31) >> 5;      // plane words a window's bits come from
@@ -175,8 +195,8 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
     __syncthreads();
 
     // ---- B. per window: the entries' greedy counts ----
-    for (int w = threadIdx.x; w < W; w += kThreads) {
-      const int s = w * slide;
+    for (int w = threadIdx.x; w < blk.n_win; w += kThreads) {
+      const int s = blk.off + w * slide;
       const int sh = s & 31;
       const uint32_t* first = planes + (s >> 5);
       int32_t acc = 0;
@@ -197,14 +217,14 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
           }
         }
         if (kMode == kCounts) {
-          out[(static_cast<size_t>(b) * K + e0 + e) * W + w] = cnt;
+          out[(static_cast<size_t>(b) * K + e0 + e) * W + blk.w0 + w] = cnt;
         } else {
           acc += max(cnt, 1);
         }
       }
       // the same thread meets window w in every group of entries
       if (kMode == kSignal) {
-        int32_t* yw = out + static_cast<size_t>(b) * W + w;
+        int32_t* yw = out + static_cast<size_t>(b) * W + blk.w0 + w;
         *yw = e0 == 0 ? acc : *yw + acc;
       } else if (kMode == kBoundary) {
         y[w] = e0 == 0 ? acc : y[w] + acc;
@@ -221,35 +241,64 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
   }
 }
 
+// What a launch is made of: the windows a block serves (`WB`; the read's W
+// with one block a read), the bases it stages, its plane words, the entries
+// whose planes it holds at a time, and its shared memory.
+struct Plan {
+  int WB, n_blocks, span, Kg, pw, smem_bytes;
+};
+
+// The plan of a launch with `block_windows` windows a block (0, or W and
+// more: one block a read); false when the staged rows, y and one match plane
+// do not fit a block's shared memory.  The fused entry needs all of y in one
+// block.
+inline bool plan(int L, int W, int K, int k, int J, int slide, bool dense, bool boundary,
+                 int block_windows, Plan* p) {
+  p->WB = block_windows > 0 && block_windows < W ? block_windows : W;
+  p->n_blocks = (W + p->WB - 1) / p->WB;
+  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > 1)) return false;
+  p->span = topsicle::block_span(L, W, p->WB, slide, J, k);
+  // plane words: through the word after the last one a window's bits start
+  // in (a block's first window starts up to kStageAlign - 1 positions into
+  // its staged bases), an odd count so that the lanes' stores of step A
+  // spread over banks
+  const long long first_max = p->n_blocks > 1 ? topsicle::kStageAlign - 1 : 0;
+  const long long pw =
+      (((first_max + static_cast<long long>(p->WB - 1) * slide) >> 5) + ((J + 31) >> 5) + 1) | 1;
+  const long long fixed = layout(p->span, p->WB, K, 0, 0, dense, boundary).total;
+  if (fixed + 4 * pw > kSmemLimit) return false;
+  const int fit = static_cast<int>((kSmemLimit - fixed) / (4 * pw));     // planes a block holds
+  const int n_groups = (K + fit - 1) / fit;
+  p->Kg = (K + n_groups - 1) / n_groups;
+  p->pw = static_cast<int>(pw);
+  p->smem_bytes = static_cast<int>(fixed + 4 * pw * p->Kg);
+  return true;
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success), or -2
-// when the wire, y and one match plane do not fit a block's shared memory.
+// when a block does not fit shared memory (ops/geometry.py picks a route
+// that fits before the launch, so -2 is a fault of the caller).
 template <int kMode>
 int launch(const void* packed, int packed_stride, const void* lengths, const void* invalid,
            int invalid_stride, const void* table, int K, int k, int slide, int J, int L,
-           int W, int B, void* out, const void* n_windows, int jump, int min_size,
-           void* t_out, void* has_out, void* stream) {
+           int W, int B, int block_windows, void* out, const void* n_windows, int jump,
+           int min_size, void* t_out, void* has_out, void* stream) {
   const bool dense = invalid != nullptr;
-  // plane words: through the word after the last one a window's bits start
-  // in, an odd count so that the lanes' stores of step A spread over banks
-  const long long pw = (((static_cast<long long>(W - 1) * slide) >> 5) + ((J + 31) >> 5) + 1) | 1;
-  const long long fixed = layout(L, W, K, 0, 0, dense, kMode == kBoundary).total;
-  if (fixed + 4 * pw > kSmemLimit) return -2;
-  const int fit = static_cast<int>((kSmemLimit - fixed) / (4 * pw));     // planes a block holds
-  const int n_groups = (K + fit - 1) / fit;
-  const int Kg = (K + n_groups - 1) / n_groups;
-  const int smem_bytes = static_cast<int>(fixed + 4 * pw * Kg);
-  if (smem_bytes > 48 * 1024) {
+  Plan p;
+  if (!plan(L, W, K, k, J, slide, dense, kMode == kBoundary, block_windows, &p)) return -2;
+  if (p.smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        greedy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        greedy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   using topsicle::aligned16;
-  greedy_kernel<kMode><<<B, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  greedy_kernel<kMode><<<dim3(B, p.n_blocks), kThreads, p.smem_bytes,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(invalid), invalid_stride,
       dense && aligned16(invalid, invalid_stride),
-      static_cast<const int32_t*>(table), K, k, slide, J, L, W, Kg, static_cast<int>(pw),
+      static_cast<const int32_t*>(table), K, k, slide, J, L, W, p.WB, p.span, p.Kg, p.pw,
       static_cast<int32_t*>(out), static_cast<const int32_t*>(n_windows), jump, min_size,
       static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
   return static_cast<int>(cudaGetLastError());
@@ -259,8 +308,9 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
 
 // Pointers are device pointers; exactly one of `lengths` (lean wire) and
 // `invalid` (dense wire) is non-null.  Needs J >= 1, W >= 1, B >= 1,
-// K >= 1, k <= 15.  Window w reads offsets w*slide + j, j < J; offsets past
-// L - k never match.
+// K >= 1, k <= 15, W * slide + J + k < 2^31.  Window w reads offsets
+// w*slide + j, j < J; offsets past L - k never match.  `block_windows`: the
+// windows a block serves on the window-block grid; 0 for one block a read.
 
 // y int32 [B, W]: sum over the K entries of max(count, 1).
 extern "C" int topsicle_greedy_signal(const void* packed, int packed_stride,
@@ -268,9 +318,10 @@ extern "C" int topsicle_greedy_signal(const void* packed, int packed_stride,
                                       const void* invalid, int invalid_stride,
                                       const void* table, int K, int k,
                                       int slide, int J, int L, int W, int B,
-                                      void* out, void* stream) {
+                                      int block_windows, void* out, void* stream) {
   return launch<kSignal>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
-                         slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
+                         slide, J, L, W, B, block_windows, out, nullptr, 0, 0, nullptr,
+                         nullptr, stream);
 }
 
 // counts int32 [B, K, W], no floor.
@@ -279,9 +330,10 @@ extern "C" int topsicle_greedy_counts(const void* packed, int packed_stride,
                                       const void* invalid, int invalid_stride,
                                       const void* table, int K, int k,
                                       int slide, int J, int L, int W, int B,
-                                      void* out, void* stream) {
+                                      int block_windows, void* out, void* stream) {
   return launch<kCounts>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
-                         slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
+                         slide, J, L, W, B, block_windows, out, nullptr, 0, 0, nullptr,
+                         nullptr, stream);
 }
 
 // The signal, followed in the block by the changepoint: `n_windows` [B]
@@ -295,6 +347,21 @@ extern "C" int topsicle_greedy_boundary(const void* packed, int packed_stride,
                                         const void* n_windows, int jump, int min_size,
                                         void* t_out, void* has_out, void* stream) {
   return launch<kBoundary>(packed, packed_stride, lengths, invalid, invalid_stride, table, K,
-                           k, slide, J, L, W, B, nullptr, n_windows, jump, min_size, t_out,
-                           has_out, stream);
+                           k, slide, J, L, W, B, 0, nullptr, n_windows, jump, min_size,
+                           t_out, has_out, stream);
+}
+
+// What the launcher would do, without launching: out[0..4] = shared-memory
+// bytes, windows a block, blocks a read, entries a group of planes, words a
+// plane.  Returns 0, or -2 where the launch would.
+extern "C" int topsicle_greedy_plan(int L, int W, int K, int k, int J, int slide, int dense,
+                                    int boundary, int block_windows, int* out) {
+  Plan p;
+  if (!plan(L, W, K, k, J, slide, dense != 0, boundary != 0, block_windows, &p)) return -2;
+  out[0] = p.smem_bytes;
+  out[1] = p.WB;
+  out[2] = p.n_blocks;
+  out[3] = p.Kg;
+  out[4] = p.pw;
+  return 0;
 }

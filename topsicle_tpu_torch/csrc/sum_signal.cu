@@ -1,5 +1,6 @@
 // Step-2 sum-signal kernel for Hopper (sm_90a), with the exact changepoint
-// fused behind it: one thread block per read.
+// fused behind it: one thread block per read, or per block of a long read's
+// windows.
 //
 // Replaces: topsicle_tpu/ops/pallas_kernels.py::_sum_signal_kernel (the
 // TPU kernel behind step2_sum_signal_pallas and _lean) and, in the fused
@@ -66,8 +67,19 @@
 // B > 132.  Where the windows of a read do not fit at once (slide 1 at
 // that length: 19,949 windows), the block walks them in tiles of as many
 // as fit, each tile with its own groups, and the fused entry keeps y [W]
-// beside the tile's arrays.  A read whose wire and y alone pass a block's
-// 227 KB is refused by the launcher.
+// beside the tile's arrays.
+//
+// Long reads: the window-block grid.  A read whose staged rows (and, fused,
+// y [W]) pass a block's 227 KB cannot be one block.  topsicle_sum_signal
+// then launches on blocks (read, window block) of `block_windows` windows,
+// the second grid axis of the TPU launcher
+// (topsicle_tpu/ops/pallas_kernels.py::_signal_pallas_call): a block stages
+// the bytes its windows read (csrc/wire.cuh::window_block), runs the three
+// steps on them with its groups cut from its own first window, and writes
+// its windows of y [B, W] to device memory, so shared memory is constant in
+// the read's length.  The changepoint needs the whole of y: past the fused
+// entry's limit the caller runs csrc/binseg.cu on y instead
+// (ops/geometry.py picks the route before the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -87,7 +99,9 @@ using topsicle::round16;
 // Dynamic shared-memory layout, in bytes: wire | invalid plane | y (the
 // fused entry, and only when the windows go in several tiles: with one
 // tile y takes the place of a group array) | six arrays of one tile's
-// tile_w + Q groups | table.  One function for the launcher and the kernel.
+// tile_w + Q groups | table.  `L` is the bases a block stages and `W` the
+// windows it serves (the read's, with one block a read).  One function for
+// the launcher and the kernel; ops/geometry.py mirrors it.
 constexpr int kGroupArrays = 6;
 
 struct Layout {
@@ -141,7 +155,7 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
            const int32_t* __restrict__ lengths,
            const uint8_t* __restrict__ invalid, int invalid_stride, int invalid_vec16,
            const int32_t* __restrict__ table, int K, int k,
-           int slide, int J, int L, int W, int use_lut, int tile_w,
+           int slide, int J, int L, int W, int WB, int span, int use_lut, int tile_w,
            int32_t* __restrict__ y_out,
            const int32_t* __restrict__ n_windows, int jump, int min_size,
            long long* __restrict__ t_out, uint8_t* __restrict__ has_out) {
@@ -153,7 +167,8 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   const bool dense = invalid != nullptr;
   const int Q = J / slide;            // whole groups in a window
   const int R = J - Q * slide;        // and positions of the next group
-  const Layout lay = layout(L, W, k, Q, dense, use_lut != 0, tile_w, kBoundary);
+  const topsicle::WindowBlock blk = topsicle::window_block(blockIdx.y, WB, W, L, slide, span);
+  const Layout lay = layout(span, WB, k, Q, dense, use_lut != 0, tile_w, kBoundary);
   uint8_t* wire8 = smem + lay.wire;
   uint8_t* inv8 = smem + lay.inv;
   const int gn = round16(4 * (tile_w + Q)) / 4;           // words per group array
@@ -165,13 +180,15 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   uint32_t* f_sum = f_or + gn;
   uint32_t* lut = reinterpret_cast<uint32_t*>(smem + lay.lut);
 
-  // ---- stage the row, the plane and the table ----
-  topsicle::stage_row_padded(wire8, packed + static_cast<size_t>(b) * packed_stride,
-                             (L + 3) / 4, lay.inv - lay.wire, packed_vec16 != 0,
+  // ---- stage the block's bytes of the row and the plane, and the table ----
+  topsicle::stage_row_padded(wire8,
+                             packed + static_cast<size_t>(b) * packed_stride + blk.pa / 4,
+                             (blk.n_bases + 3) / 4, lay.inv - lay.wire, packed_vec16 != 0,
                              threadIdx.x, kThreads);
   if (dense)
-    topsicle::stage_row_padded(inv8, invalid + static_cast<size_t>(b) * invalid_stride,
-                               (L + 7) / 8, lay.y - lay.inv, invalid_vec16 != 0,
+    topsicle::stage_row_padded(inv8,
+                               invalid + static_cast<size_t>(b) * invalid_stride + blk.pa / 8,
+                               (blk.n_bases + 7) / 8, lay.y - lay.inv, invalid_vec16 != 0,
                                threadIdx.x, kThreads);
   if (threadIdx.x < K) tab[threadIdx.x] = table[threadIdx.x];
   if (use_lut) {
@@ -186,22 +203,24 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   __syncthreads();
 
   Read r;
+  // the lean wire's valid length, counted like every position from the
+  // block's first staged base
   r.row = topsicle::wire_row(wire8, dense ? inv8 : nullptr, k,
-                             lengths != nullptr ? max(0, min(lengths[b], L)) : L);
+                             (lengths != nullptr ? max(0, min(lengths[b], L)) : L) - blk.pa);
   r.lut = use_lut ? lut : nullptr;
   r.tab = tab;
   r.K = K;
 
   // y of the fused entry: its own array, or with one tile the suffix
   // sums' array, which each thread overwrites at the index it alone reads
-  int32_t* y = tile_w < W ? reinterpret_cast<int32_t*>(smem + lay.y)
-                          : reinterpret_cast<int32_t*>(g_sum);
+  int32_t* y = tile_w < WB ? reinterpret_cast<int32_t*>(smem + lay.y)
+                           : reinterpret_cast<int32_t*>(g_sum);
 
-  for (int w0 = 0; w0 < W; w0 += tile_w) {
+  for (int w0 = 0; w0 < blk.n_win; w0 += tile_w) {
     // Positions, groups and windows are counted from the tile's first:
     // window i is groups i .. i + Q - 1 and R positions of group i + Q.
-    const int n_win = min(tile_w, W - w0);
-    const int p0 = w0 * slide;
+    const int n_win = min(tile_w, blk.n_win - w0);
+    const int p0 = blk.off + w0 * slide;
     const int n_pos = (n_win - 1) * slide + J;      // positions the tile's windows read
     const int n_grp = n_win + Q;
 
@@ -278,7 +297,7 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
       if (kBoundary) {
         y[w0 + w] = v;
       } else {
-        y_out[static_cast<size_t>(b) * W + w0 + w] = v;
+        y_out[static_cast<size_t>(b) * W + blk.w0 + w0 + w] = v;
       }
     }
     __syncthreads();      // the next tile, or the changepoint, reuses the arrays
@@ -289,39 +308,61 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   }
 }
 
+// What a launch is made of: the windows a block serves (`WB`; the read's W
+// with one block a read), the bases it stages, and its shared memory.
+struct Plan {
+  int WB, n_blocks, span, tile_w, smem_bytes;
+  bool use_lut;
+};
+
+// The plan of a launch with `block_windows` windows a block (0, or W and
+// more: one block a read); false when a block does not fit shared memory.
+// The fused entry needs all of y in one block.
+inline bool plan(int L, int W, int k, int J, int slide, bool dense, bool boundary,
+                 int block_windows, Plan* p) {
+  p->WB = block_windows > 0 && block_windows < W ? block_windows : W;
+  p->n_blocks = (W + p->WB - 1) / p->WB;
+  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > 1)) return false;
+  p->span = topsicle::block_span(L, W, p->WB, slide, J, k);
+  // the table where it leaves room for all windows or a tile of 1,024
+  const int Q = J / slide;
+  p->use_lut = k <= kLutMaxK;
+  p->tile_w = p->use_lut ? tile_windows(p->span, p->WB, k, Q, dense, true, boundary) : 0;
+  if (p->tile_w < p->WB && p->tile_w < 1024) {
+    p->use_lut = false;
+    p->tile_w = tile_windows(p->span, p->WB, k, Q, dense, false, boundary);
+  }
+  if (p->tile_w < 1) return false;
+  p->smem_bytes = layout(p->span, p->WB, k, Q, dense, p->use_lut, p->tile_w, boundary).total;
+  return p->smem_bytes <= kSmemLimit;
+}
+
 // Launch on `stream`; returns cudaGetLastError() (0 on success), or -2
-// when a read of L bases does not fit a block's shared memory.
+// when a block does not fit shared memory (ops/geometry.py picks a route
+// that fits before the launch, so -2 is a fault of the caller).
 template <bool kBoundary>
 int launch(const void* packed, int packed_stride, const void* lengths, const void* invalid,
            int invalid_stride, const void* table, int K, int k, int slide, int J, int L,
-           int W, int B, void* y_out, const void* n_windows, int jump, int min_size,
-           void* t_out, void* has_out, void* stream) {
+           int W, int B, int block_windows, void* y_out, const void* n_windows, int jump,
+           int min_size, void* t_out, void* has_out, void* stream) {
   const bool dense = invalid != nullptr;
-  // the table where it leaves room for all windows or a tile of 1,024
-  const int Q = J / slide;
-  bool use_lut = k <= kLutMaxK;
-  int tile_w = use_lut ? tile_windows(L, W, k, Q, dense, true, kBoundary) : 0;
-  if (tile_w < W && tile_w < 1024) {
-    use_lut = false;
-    tile_w = tile_windows(L, W, k, Q, dense, false, kBoundary);
-  }
-  if (tile_w < 1) return -2;
-  const int smem_bytes = layout(L, W, k, Q, dense, use_lut, tile_w, kBoundary).total;
-  if (smem_bytes > kSmemLimit) return -2;
-  if (smem_bytes > 48 * 1024) {
+  Plan p;
+  if (!plan(L, W, k, J, slide, dense, kBoundary, block_windows, &p)) return -2;
+  if (p.smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        sum_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+        sum_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   using topsicle::aligned16;
-  sum_kernel<kBoundary><<<B, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+  sum_kernel<kBoundary><<<dim3(B, p.n_blocks), kThreads, p.smem_bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(invalid), invalid_stride,
       dense && aligned16(invalid, invalid_stride),
-      static_cast<const int32_t*>(table), K, k, slide, J, L, W, use_lut, tile_w,
-      static_cast<int32_t*>(y_out), static_cast<const int32_t*>(n_windows), jump, min_size,
-      static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
+      static_cast<const int32_t*>(table), K, k, slide, J, L, W, p.WB, p.span, p.use_lut,
+      p.tile_w, static_cast<int32_t*>(y_out), static_cast<const int32_t*>(n_windows), jump,
+      min_size, static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -329,15 +370,17 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
 
 // Pointers are device pointers; exactly one of `lengths` (lean wire) and
 // `invalid` (dense wire) is non-null.  Needs J >= 1, W >= 1, B >= 1,
-// K <= 31, k <= 15.
+// K <= 31, k <= 15, W * slide + J + k < 2^31.  `block_windows`: the windows
+// a block serves on the window-block grid; 0 for one block a read.
 extern "C" int topsicle_sum_signal(const void* packed, int packed_stride,
                                    const void* lengths,
                                    const void* invalid, int invalid_stride,
                                    const void* table, int K, int k,
                                    int slide, int J, int L, int W, int B,
-                                   void* out, void* stream) {
+                                   int block_windows, void* out, void* stream) {
   return launch<false>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
-                       slide, J, L, W, B, out, nullptr, 0, 0, nullptr, nullptr, stream);
+                       slide, J, L, W, B, block_windows, out, nullptr, 0, 0, nullptr, nullptr,
+                       stream);
 }
 
 // The same, followed in the block by the changepoint: `n_windows` [B]
@@ -351,11 +394,26 @@ extern "C" int topsicle_sum_boundary(const void* packed, int packed_stride,
                                      const void* n_windows, int jump, int min_size,
                                      void* t_out, void* has_out, void* stream) {
   return launch<true>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
-                      slide, J, L, W, B, nullptr, n_windows, jump, min_size, t_out, has_out,
+                      slide, J, L, W, B, 0, nullptr, n_windows, jump, min_size, t_out, has_out,
                       stream);
 }
 
+// What the launcher would do, without launching: out[0..4] = shared-memory
+// bytes, windows a block, blocks a read, windows a tile, 1 if the presence
+// table is in shared memory.  Returns 0, or -2 where the launch would.
+extern "C" int topsicle_sum_plan(int L, int W, int k, int J, int slide, int dense,
+                                 int boundary, int block_windows, int* out) {
+  Plan p;
+  if (!plan(L, W, k, J, slide, dense != 0, boundary != 0, block_windows, &p)) return -2;
+  out[0] = p.smem_bytes;
+  out[1] = p.WB;
+  out[2] = p.n_blocks;
+  out[3] = p.tile_w;
+  out[4] = p.use_lut;
+  return 0;
+}
+
 extern "C" const char* topsicle_cuda_error_string(int code) {
-  if (code == -2) return "the read does not fit a block's shared memory";
+  if (code == -2) return "the block does not fit shared memory";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

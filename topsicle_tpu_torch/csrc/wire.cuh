@@ -52,6 +52,52 @@ __device__ __forceinline__ void stage_row_padded(uint8_t* dst, const uint8_t* sr
 __host__ __device__ inline int wire_row_bytes(int L) { return round16((L + 3) / 4 + 8); }
 __host__ __device__ inline int invalid_row_bytes(int L) { return round16((L + 7) / 8 + 8); }
 
+// ---- the window-block grid ---------------------------------------------------
+//
+// The step-2 signal kernels launch on blocks (b, wb): read b, window block wb
+// of `WB` windows (the grid of the TPU launcher,
+// topsicle_tpu/ops/pallas_kernels.py::phase_plane_geometry, without its
+// planar wire).  A block stages only the bases its windows read: from window
+// wb*WB's first base, rounded down to kStageAlign so that the staged wire
+// and invalid plane start on a 16-byte boundary of their rows and every
+// position keeps its place in a 32-bit word, through its last window's last
+// base (the halo: J + k - 1 bases past the last window's start).  Positions
+// inside the block count from the first staged base.  One block a read is
+// the grid with WB = W and the whole row staged.
+
+constexpr int kStageAlign = 128;    // bases: 32 bytes of wire, 16 of invalid plane
+constexpr int kMaxGridY = 65535;     // blocks a read: a launch's second grid axis
+
+// Bases a block of `WB` windows stages at most: the whole row where one
+// block serves the read, else the worst misalignment, the windows' starts and
+// the halo.
+__host__ __device__ inline int block_span(int L, int W, int WB, int slide, int J, int k) {
+  if (WB >= W) return L;
+  const long long span = kStageAlign - 1 + static_cast<long long>(WB - 1) * slide + J + k - 1;
+  return span < L ? static_cast<int>(span) : L;
+}
+
+struct WindowBlock {
+  int w0;       // the block's first window
+  int n_win;    // its windows: WB, fewer in a read's last block
+  int pa;       // the first staged base, a multiple of kStageAlign
+  int off;      // window w0's first base, counted from pa
+  int n_bases;  // staged bases: `span`, fewer (down to 0) where the row ends
+};
+
+__host__ __device__ inline WindowBlock window_block(int wb, int WB, int W, int L, int slide,
+                                                    int span) {
+  WindowBlock s;
+  s.w0 = wb * WB;
+  s.n_win = W - s.w0 < WB ? W - s.w0 : WB;
+  const long long first = static_cast<long long>(s.w0) * slide;
+  const long long pa = first & ~static_cast<long long>(kStageAlign - 1);
+  s.pa = static_cast<int>(pa < L ? pa : (L & ~(kStageAlign - 1)));
+  s.off = static_cast<int>(first - s.pa);
+  s.n_bases = L - s.pa < span ? L - s.pa : span;
+  return s;
+}
+
 struct WireRow {
   const uint32_t* wire;     // the staged row as 32-bit words
   const uint32_t* inv;      // the staged invalid plane as 32-bit words, or nullptr (lean)

@@ -10,9 +10,13 @@ every table with k <= 15:
           aperiodic tables with K <= 31, ops.greedy_boundary for the
           rest.  A kernel asked for by name runs unfused: its signal
           (ops.sum_signal or ops.greedy_signal), then the changepoint
-          kernel (ops.binseg_l2)
+          kernel (ops.binseg_l2); so does a scan too long for the fused
+          block (ops.geometry.pick_route, asked before every launch), its
+          signal kernel on the window-block grid where a read's rows pass
+          a block's shared memory.  No scan length is refused
   rawcounts: [B, L] tail codes -> [B, K, W] per-entry greedy counts, no
-          floor (ops.greedy_counts), for --rawcountpattern and --plot
+          floor (ops.greedy_counts, by the same picker), for
+          --rawcountpattern and --plot
 
 Batches ship on the lean wire (2 bits/base + lengths) when every read's
 valid prefix is pure ACGT, else on the dense wire (+ an invalid bit-plane),
@@ -72,13 +76,17 @@ class HostResult:
 
 def resolve_kernel(requested) -> str | None:
     """The step-2 kernel asked for, as TopsicleConfig.use_pallas holds it:
-    None (auto), "sum", or "greedy" (True is the legacy spelling).  The
-    port has no XLA path, so False and every other value raise."""
-    if requested is None or requested in ("sum", "greedy"):
-        return requested
+    None (auto), "sum", or "greedy" (True is the legacy spelling).  False
+    (--kernel xla) is auto: the port has no XLA programs, and the bytes
+    are the same under any kernel.  Every other value raises."""
+    if requested is None or requested is False:
+        return None
     if requested is True:
         return "greedy"
-    raise ValueError(f"unknown kernel {requested!r} (expected None, 'sum' or 'greedy')")
+    if requested in ("sum", "greedy"):
+        return requested
+    raise ValueError(f"unknown kernel {requested!r} (expected None, False, 'sum' or "
+                     "'greedy')")
 
 
 class TorchScanModel:
@@ -91,15 +99,20 @@ class TorchScanModel:
     takes the greedy kernel.  "sum" outside the envelope warns and takes
     the greedy kernel, as the JAX model does.  Auto runs its kernel fused
     with the changepoint (one launch: ops.sum_boundary or
-    ops.greedy_boundary); a kernel asked for by name runs the two kernels
-    one after the other (ops.sum_signal or ops.greedy_signal, then
-    ops.binseg_l2), the route the fused one can be checked against end
-    to end.  The results are bit-identical."""
+    ops.greedy_boundary) where a read's rows and y fit one block; a
+    kernel asked for by name, and auto past that size, run the two
+    kernels one after the other (ops.sum_signal or ops.greedy_signal,
+    then ops.binseg_l2), the signal kernel one block a read or, for a
+    longer read still, on the window-block grid.  ops.geometry.pick_route
+    decides from the batch's length before each launch; `log` (a
+    callable, the engine's run log) gets one line the first time a
+    geometry leaves the fused route.  The results are bit-identical on
+    every route."""
 
     def __init__(self, kmers: Sequence[str], *, device: str | torch.device = "cuda",
                  window_size: int = 100, slide: int = 7, jump: int = 5,
                  min_size: int = 2, k: int | None = None, table=None,
-                 kernel: str | None = None):
+                 kernel: str | None = None, log=None):
         if not kmers:
             raise ValueError("empty k-mer table")
         self.kmers = list(kmers)
@@ -120,6 +133,8 @@ class TorchScanModel:
         in_sum_envelope = self.aperiodic and self.K <= ops.cuda_kernels.MAX_ENTRIES
         self.kernel = "sum" if requested != "greedy" and in_sum_envelope else "greedy"
         self.fused = requested is None
+        self.log = log
+        self._routes_logged: set = set()    # shared by the copies `to` makes
         if requested == "sum" and self.kernel != "sum":
             warnings.warn("kernel 'sum' requires a table of aperiodic k-mers with "
                           f"K <= {ops.cuda_kernels.MAX_ENTRIES} entries; falling back "
@@ -186,15 +201,52 @@ class TorchScanModel:
         n = self._to_device(np.asarray(n_windows, dtype=np.int32))
         geometry = dict(k=self.k, window_size=self.window_size, slide=self.slide, L=L,
                         lean=lean)
-        if self.fused:
-            boundary = ops.sum_boundary if self.kernel == "sum" else ops.greedy_boundary
+        kernel, route = self.route(self.kernel, L, lean, fused=self.fused)
+        if route.fused:
+            boundary = ops.sum_boundary if kernel == "sum" else ops.greedy_boundary
             t, has = boundary(a, b, self.table, n, jump=self.jump, min_size=self.min_size,
                               **geometry)
         else:
-            signal = ops.sum_signal if self.kernel == "sum" else ops.greedy_signal
-            t, has = ops.binseg_l2(signal(a, b, self.table, **geometry), n,
-                                   jump=self.jump, min_size=self.min_size)
+            signal = ops.sum_signal if kernel == "sum" else ops.greedy_signal
+            y = signal(a, b, self.table, block_windows=route.block_windows, **geometry)
+            t, has = ops.binseg_l2(y, n, jump=self.jump, min_size=self.min_size)
         return HostResult(t), HostResult(has)
+
+    def route(self, entry: str, L: int, lean: bool, fused: bool = False):
+        """(entry, route) of a launch of `entry` ("sum", "greedy" or
+        "counts") on a batch of L bases a read (ops.geometry.find_route).
+        A window so long that the sum body cannot hold one (its groups
+        pass a block's shared memory) takes the greedy body, which is
+        exact for every table.  On a card, the first batch of a geometry
+        that asked for the fused route and leaves it, that takes the grid
+        or that changes body is named in the run log."""
+        geometry = dict(L=L, W=self.num_windows(L), K=self.K, k=self.k,
+                        window_size=self.window_size, slide=self.slide, dense=not lean,
+                        fused=fused)
+        asked = entry
+        route = ops.geometry.find_route(entry, **geometry)
+        if route is None and entry == "sum":
+            entry = "greedy"
+        if route is None:
+            route = ops.geometry.pick_route(entry, **geometry)
+        left = (fused and not route.fused) or route.kind == "grid" or entry != asked
+        key = (asked, L, lean, fused)
+        if left and self.log is not None and self.device.type == "cuda" \
+                and key not in self._routes_logged:
+            self._routes_logged.add(key)
+            kernels = {"sum": "sum_signal then binseg_l2",
+                       "greedy": "greedy_signal then binseg_l2",
+                       "counts": "greedy_counts"}[entry]
+            if route.fused:
+                kernels = f"{entry}_boundary"
+            how = (f"on the window-block grid ({route.block_windows} windows a block)"
+                   if route.kind == "grid" else "one block a read")
+            why = ("takes " if not fused else
+                   "is past the fused kernel's shared memory: " if not route.fused else
+                   "has a window past the sum kernel's shared memory: ")
+            self.log(f"INFO: scan length {L} ({'lean' if lean else 'dense'} wire, window "
+                     f"{self.window_size}, slide {self.slide}, k={self.k}) {why}{kernels}, {how}")
+        return entry, route
 
     def step2_boundary_launch(self, tail_codes: np.ndarray, n_windows: np.ndarray,
                               lens: np.ndarray | None = None):
@@ -217,7 +269,8 @@ class TorchScanModel:
         a, b, L, lean = self._wire_to_device(packed)
         return HostResult(ops.greedy_counts(
             a, b, self.table, k=self.k, J=self.window_size - self.k,
-            W=self.num_windows(L), slide=self.slide, L=L, lean=lean))
+            W=self.num_windows(L), slide=self.slide, L=L, lean=lean,
+            block_windows=self.route("counts", L, lean)[1].block_windows))
 
     def rawcounts(self, tail_codes: np.ndarray,
                   lens: np.ndarray | None = None) -> np.ndarray:

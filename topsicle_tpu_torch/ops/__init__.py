@@ -2,6 +2,7 @@
 kernels (cuda_kernels).  All integer, so results are bit-identical across
 the CPU, the card and the JAX reference."""
 
+from topsicle_tpu_torch.ops import geometry  # noqa: F401
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device  # noqa: F401
 from topsicle_tpu_torch.ops.cuda_kernels import (  # noqa: F401
     binseg_l2,

@@ -26,7 +26,14 @@
 
 The three sources that read the wire share csrc/wire.cuh (staging a row,
 the rolling code and validity of a position, whether an entry's matches
-can overlap, the find-first-set take).
+can overlap, the find-first-set take, the window-block grid).
+
+sum_signal, greedy_signal and greedy_counts run one block a read where the
+read's rows fit a block's shared memory, and on the window-block grid
+(blocks of `block_windows` windows, each staging only the bases its
+windows read) where they do not: ops.geometry picks, before the launch, so
+that no length is refused.  The fused entries need a read's whole y in one
+block; past that the model runs a signal entry and binseg_l2.
 
 Every csrc/*.cu is compiled with nvcc (one process per source, started
 together, then one link) into a single shared library with a plain C
@@ -52,6 +59,7 @@ from pathlib import Path
 
 import torch
 
+from topsicle_tpu_torch.ops import geometry
 from topsicle_tpu_torch.ops.changepoint import binseg_l2_device
 from topsicle_tpu_torch.ops.match import (MAX_ROLLING_K, boundary_sum_signal,
                                           greedy_count, match_positions,
@@ -80,10 +88,13 @@ STEP1_PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 # pointer (or the stream), i an int.  ctypes passes an undeclared pointer as
 # a 32-bit int and cuts it, so every entry is declared from this table.
 _WIRE = "pippipiiiiiii"       # packed, stride, lengths, invalid, stride, table, K, k .. W, B
-ENTRY_ARGS = {"sum_boundary": _WIRE + "piippp", "sum_signal": _WIRE + "pp",
+ENTRY_ARGS = {"sum_boundary": _WIRE + "piippp", "sum_signal": _WIRE + "ipp",
               "binseg_l2": "piipiippp", "greedy_boundary": _WIRE + "piippp",
-              "greedy_signal": _WIRE + "pp", "greedy_counts": _WIRE + "pp",
+              "greedy_signal": _WIRE + "ipp", "greedy_counts": _WIRE + "ipp",
               "step1_counts": "pippipiiiipp"}
+# topsicle_<name>_plan: what a launcher would do, without a launch (ints, then
+# an int[5] for the answer)
+PLAN_ARGS = {"sum": 8, "greedy": 9}
 
 
 def reset_launch_counts() -> None:
@@ -178,6 +189,10 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, f"topsicle_{name}")
                 fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int for a in args]
                 fn.restype = ctypes.c_int
+            for name, n_ints in PLAN_ARGS.items():
+                fn = getattr(lib, f"topsicle_{name}_plan")
+                fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
+                fn.restype = ctypes.c_int
             lib.topsicle_cuda_error_string.argtypes = [ctypes.c_int]
             lib.topsicle_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -239,16 +254,52 @@ def _wire_args(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
 
 def _launch(name: str, dev: torch.device, *args) -> None:
     """Launch topsicle_<name>(*args, stream) on `dev`'s current stream;
-    raises on a non-zero launch code, counts the launch otherwise."""
+    raises on a non-zero launch code, counts the launch otherwise.  A
+    launcher's own refusal (-2: a block past shared memory) is a fault of
+    the caller, which picks a route that fits before it launches."""
     lib = load_library()
     with torch.cuda.device(dev):
         rc = getattr(lib, f"topsicle_{name}")(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.topsicle_cuda_error_string(rc).decode()
-        if rc == -2:      # the launcher's own refusal, not a CUDA error
-            raise ValueError(f"{name}: {msg}")
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + (msg if rc == -2 else f"CUDA error {rc} ({msg})"))
     LAUNCHES[name] += 1
+
+
+def launcher_plan(entry: str, *, L: int, W: int, K: int, k: int, J: int, slide: int,
+                  dense: bool, boundary: bool, block_windows: int = 0):
+    """What the built library's launcher of the sum or greedy body would
+    do with this geometry, without a launch: ops.geometry's SumPlan or
+    GreedyPlan, or None where it would refuse.  Holds ops.geometry, the
+    launchers' mirror, against the launchers."""
+    lib = load_library()
+    out = (ctypes.c_int * 5)()
+    tail = (J, slide, int(dense), int(boundary), block_windows, out)
+    if entry == "sum":
+        rc = lib.topsicle_sum_plan(L, W, k, *tail)
+    else:
+        rc = lib.topsicle_greedy_plan(L, W, K, k, *tail)
+    if rc != 0:
+        return None
+    if entry == "sum":
+        return geometry.SumPlan(out[0], out[1], out[2], out[3], bool(out[4]))
+    return geometry.GreedyPlan(*out)
+
+
+def _block_windows(entry: str, block_windows, *, L: int, W: int, K: int, k: int, J: int,
+                   slide: int, lean: bool) -> int:
+    """The launch's windows a block: the caller's (0: one block a read; n:
+    the window-block grid at n windows a block, for checks and timings of
+    a route the geometry would not take), or the picker's."""
+    if (W - 1) * slide + J + k >= 2 ** 31:
+        raise ValueError(f"{W} windows at slide {slide} pass the kernels' 32-bit positions")
+    if block_windows is not None:
+        if block_windows < 0:
+            raise ValueError(f"block_windows must be >= 0, got {block_windows}")
+        return int(block_windows)
+    return geometry.pick_route(entry, L=L, W=W, K=K, k=k, window_size=J + k, slide=slide,
+                               dense=not lean, fused=False).block_windows
 
 
 # ---- sum_signal, sum_boundary and binseg_l2 ----------------------------------
@@ -265,7 +316,7 @@ def sum_signal_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.T
 
 def sum_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                *, k: int, window_size: int, slide: int, L: int,
-               lean: bool) -> torch.Tensor:
+               lean: bool, block_windows: int | None = None) -> torch.Tensor:
     """Step-2 window signal y_int [B, W] int32 from the plain wire.
 
     codes_wire: [B, >= L/4] uint8 packed bases (io.batch.pack_codes or
@@ -274,7 +325,10 @@ def sum_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                 invalid bit-plane (bit s of byte q marks position 8q+s)
     table:      [K] int32 base-4 rolling codes (-1 never matches)
     Bit-identical to sum_signal_plain.  K <= 31 and k <= 15; equal to
-    greedy_signal only for aperiodic tables (the model checks)."""
+    greedy_signal only for aperiodic tables (the model checks).  Any L:
+    one block a read where that fits, else the window-block grid
+    (ops.geometry); `block_windows` forces either (0, or the windows a
+    block), for checks and timings only."""
     _check_sum_table("sum_signal", table, k)
     if codes_wire.device.type == "cpu":
         return sum_signal_plain(codes_wire, aux, table, k=k, window_size=window_size,
@@ -286,9 +340,11 @@ def sum_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
     if J <= 0 or W == 0 or B == 0:
         return torch.zeros((B, W), dtype=torch.int32, device=dev)
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    wb = _block_windows("sum", block_windows, L=L, W=W, K=int(table.shape[0]), k=k, J=J,
+                        slide=slide, lean=lean)
     _launch("sum_signal", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            out.data_ptr())
+            wb, out.data_ptr())
     return out
 
 
@@ -342,7 +398,8 @@ def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tenso
     sum_signal and, in the same block, its exact changepoint, so only
     (t [B] int64, has [B] bool) reach device memory.  Wire and table as
     for sum_signal; n_windows [B] int32 valid-window counts.
-    Bit-identical to sum_boundary_plain."""
+    Bit-identical to sum_boundary_plain.  Only for a geometry whose
+    ops.geometry.pick_route is fused: past it, sum_signal then binseg_l2."""
     _check_sum_table("sum_boundary", table, k)
     if codes_wire.device.type == "cpu":
         return sum_boundary_plain(codes_wire, aux, table, n_windows, k=k,
@@ -410,13 +467,14 @@ def _check_greedy(name: str, codes_wire: torch.Tensor, aux: torch.Tensor,
 
 def greedy_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                   *, k: int, J: int, W: int, slide: int, L: int,
-                  lean: bool) -> torch.Tensor:
+                  lean: bool, block_windows: int | None = None) -> torch.Tensor:
     """Greedy non-overlapping counts [B, K, W] int32, no floor: window w
     reads offsets w*slide + j, j < J, of the first L bases (offsets
     past them never match).  Step 2's rawcounts take
     J = window_size - k and W = num_windows(L, window_size, slide).
     Wire and table as for sum_signal; any K, duplicates each counted,
-    k <= 15.  Bit-identical to greedy_counts_plain."""
+    k <= 15.  Bit-identical to greedy_counts_plain.  Any L and W;
+    `block_windows` as for sum_signal."""
     dev = _check_greedy("greedy_counts", codes_wire, aux, table, k, L, lean)
     if dev is None:
         return greedy_counts_plain(codes_wire, aux, table, k=k, J=J, W=W, slide=slide,
@@ -426,18 +484,20 @@ def greedy_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.zeros((B, K, W), dtype=torch.int32, device=dev)
     out = torch.empty((B, K, W), dtype=torch.int32, device=dev)
+    wb = _block_windows("counts", block_windows, L=L, W=W, K=K, k=k, J=J, slide=slide,
+                        lean=lean)
     _launch("greedy_counts", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            out.data_ptr())
+            wb, out.data_ptr())
     return out
 
 
 def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                   *, k: int, window_size: int, slide: int, L: int,
-                  lean: bool) -> torch.Tensor:
+                  lean: bool, block_windows: int | None = None) -> torch.Tensor:
     """Step-2 window signal y_int [B, W] int32 = sum over the table of
     max(greedy count, 1), exact for every table (periodic, mixed,
-    duplicates, any K; k <= 15).  Arguments as for sum_signal.
+    duplicates, any K; k <= 15).  Arguments as for sum_signal, any L.
     Bit-identical to greedy_signal_plain."""
     dev = _check_greedy("greedy_signal", codes_wire, aux, table, k, L, lean)
     if dev is None:
@@ -449,9 +509,11 @@ def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
     if J <= 0 or W == 0 or B == 0 or K == 0:
         return torch.full((B, W), K, dtype=torch.int32, device=dev)
     out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    wb = _block_windows("greedy", block_windows, L=L, W=W, K=K, k=k, J=J, slide=slide,
+                        lean=lean)
     _launch("greedy_signal", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            out.data_ptr())
+            wb, out.data_ptr())
     return out
 
 
@@ -462,7 +524,9 @@ def greedy_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Te
     greedy_signal and, in the same block, its exact changepoint, so only
     (t [B] int64, has [B] bool) reach device memory.  Wire and table as
     for greedy_signal; n_windows [B] int32 valid-window counts.
-    Bit-identical to greedy_boundary_plain."""
+    Bit-identical to greedy_boundary_plain.  Only for a geometry whose
+    ops.geometry.pick_route is fused: past it, greedy_signal then
+    binseg_l2."""
     dev = _check_greedy("greedy_boundary", codes_wire, aux, table, k, L, lean)
     B, K = codes_wire.shape[0], int(table.shape[0])
     _check_boundary_args("greedy_boundary", n_windows, B, jump, min_size)
@@ -507,13 +571,18 @@ def step1_counts(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tenso
     entry over the first L bases of each row (R = 2 ends a read), for
     every table: periodic, mixed, duplicates each counted, a -1 entry
     matching nothing, any K, k <= 15.  Wire and table as for sum_signal.
-    Bit-identical to step1_counts_plain."""
+    Bit-identical to step1_counts_plain.  A row and its match planes
+    must fit a block's shared memory (L up to ~150 k bases; the engine's
+    rows are the 1,000 bases of a read end): a longer row raises."""
     dev = _check_greedy("step1_counts", codes_wire, aux, table, k, L, lean)
     if dev is None:
         return step1_counts_plain(codes_wire, aux, table, k=k, L=L, lean=lean)
     R, K = codes_wire.shape[0], int(table.shape[0])
     if L < k or R == 0 or K == 0:
         return torch.zeros((R, K), dtype=torch.int32, device=dev)
+    if not geometry.step1_fits(L, k, dense=not lean):
+        raise ValueError(f"step1_counts: a row of {L} bases does not fit a block's "
+                         "shared memory")
     out = torch.empty((R, K), dtype=torch.int32, device=dev)
     _launch("step1_counts", dev, codes_wire.data_ptr(), codes_wire.shape[1],
             aux.data_ptr() if lean else None,

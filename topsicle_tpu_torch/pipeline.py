@@ -20,7 +20,10 @@ in every mode:
   a telophrase past the device k-mer capacity (k > 15) is computed on the
       host for that phrase only (models.oracle_model), as JaxEngine does
 
-The one case the port refuses is --kernel xla: it has no XLA path.
+--kernel xla takes the auto route with one log line: the port has no XLA
+programs, and the bytes are the same under any kernel.  No scan length is
+refused: past the fused kernels' shared memory the model runs a signal
+kernel (on the window-block grid for the longest reads) and binseg_l2.
 """
 
 from __future__ import annotations
@@ -52,12 +55,8 @@ from topsicle_tpu_torch.utils.manifest import RunManifest
 from topsicle_tpu_torch.utils.profiling import StageTimers, trace_context
 
 
-def refuse_unported(cfg: TopsicleConfig) -> None:
-    """Raise ValueError for configurations the port does not serve."""
-    if cfg.use_pallas is False:
-        raise ValueError("--kernel xla is not served by the torch engine: it has no XLA "
-                         "path (ROADMAP.md queue 1 item 5); use topsicle_tpu for it")
-    resolve_kernel(cfg.use_pallas)
+XLA_KERNEL_LINE = ("the torch engine has no XLA programs; --kernel xla takes the auto "
+                   "route")
 
 
 @dataclasses.dataclass
@@ -84,9 +83,11 @@ class TorchEngine:
         import threading
 
         cfg.validate()
-        refuse_unported(cfg)
+        resolve_kernel(cfg.use_pallas)      # an unknown kernel raises here, before any output
         self.cfg = cfg
         self.log = log or writer.RunLog(cfg.output_dir if cfg.output_dir else None, echo=False)
+        if cfg.use_pallas is False:
+            self.log(XLA_KERNEL_LINE)
         self._models: Dict[int, object] = {}
         # Encoded-block cache: multi-telophrase runs parse each input
         # once and replay engine-native blocks for later phrases
@@ -137,7 +138,8 @@ class TorchEngine:
                     kmers, window_size=cfg.window_size, slide=cfg.slide_value())
                 return self._models[phrase]
             model = TorchScanModel(kmers, device=self.device, window_size=cfg.window_size,
-                                   slide=cfg.slide_value(), kernel=cfg.use_pallas)
+                                   slide=cfg.slide_value(), kernel=cfg.use_pallas,
+                                   log=self.log)
             n_dev = len(self.devices)
             if n_dev > 1:
                 # equal shards: the device batch is the batch size rounded
@@ -659,7 +661,7 @@ class TorchEngine:
         n_local_dev = len(self.devices)
         B_local = -(-cfg.batch_size // n_local_dev) * n_local_dev
         local = TorchScanModel(kmers, device=self.device, window_size=cfg.window_size,
-                               slide=cfg.slide_value())
+                               slide=cfg.slide_value(), log=self.log)
         if n_local_dev > 1:
             local = ShardedScanModel(local, self.devices)
         self._warmup(local)
