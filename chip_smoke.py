@@ -25,7 +25,10 @@ line is printed):
        binseg_l2:     on every y above and below, and alone on a constant
                       y (every candidate ties: the smallest t), a
                       [4, 131080] y (the plain version's two-limb range)
-                      and y up to 2**30 (A**2 past 64 bits)
+                      and y up to 2**30 (A**2 past 64 bits), each at the
+                      plan's tiles and forced to tiles of 32, 100 and
+                      2,048 windows (a row in tiles of windows, a block a
+                      tile; several tiles a row are two passes)
        greedy_signal, greedy_counts and greedy_boundary (one body: match
                       planes, find-first-set, the changepoint behind it):
                       CCCTAAA k = 7 (8 of 14 entries self-overlapping) on
@@ -94,14 +97,18 @@ line is printed):
      is larger, from this run's inputs; a kernel faster than its bound
      fails the run: the count would be wrong), the window-block grid at
      B = 4 x L = 1,048,576 and, forced, at the default shape beside one
-     block a read, the step-2 launch paths (one
+     block a read, binseg_l2 held to its plain version at y [128, 3312]
+     and [4, 174747] and timed there at tiles of 1,024, 2,048 and 4,096
+     windows in turns (the sweep that sets ops/geometry.py's tiles), the
+     step-2 launch paths (one
      model and two shards), and the end-to-end wall times, the
      multi-process ones included (on one card: process overhead)
 
 `python3 chip_smoke.py --times-of DIR` runs none of this: it times the
-sum_signal and greedy_signal entries and the step-1 count of the checkout
-at DIR, through DIR's own wrappers, by phase 5's two methods and prints a
-line each, so that two commits' kernels can be read in one call.
+sum_signal, greedy_signal, sum_boundary and greedy_boundary entries, the
+step-1 count and binseg_l2 (at y [128, 3312] and [4, 174747]) of the
+checkout at DIR, through DIR's own wrappers, by phase 5's two methods and
+prints a line each, so that two commits' kernels can be read in one call.
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -146,6 +153,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 # TFLOP/s of float32 (128 lanes, a fused multiply-add counted as two)
 INT32_OPS_PER_S = 67e12 / 4
 DELAY_N = 4096      # a float32 product of this order keeps the card busy ~3 ms
+BINSEG_SWEEP = (1024, 2048, 4096)      # binseg_l2's tiles timed: V = 4, 8, 16
 
 
 def _cuda_ms(torch, fn, reps):
@@ -253,16 +261,18 @@ def _start_oracle(repo, out, **cfg):
 
 def _times_of(torch, root):
     """`python3 chip_smoke.py --times-of DIR`: only the times of the
-    sum_signal entry, the greedy_signal entry and the step-1 count of the
-    checkout at DIR (this one, or another commit's unpacked beside it),
-    so that two bodies of a kernel are read by the same two methods in one
-    call.  Phase 5's batches: B = 128 x L = 19968, CCCTAAA k = 5 (sum) and
-    k = 7 (greedy), lean wire, and [256, 1000] ends at k = 7 and k = 5,
+    sum_signal, greedy_signal, sum_boundary and greedy_boundary entries,
+    the step-1 count and binseg_l2 of the checkout at DIR (this one, or
+    another commit's unpacked beside it), so that two bodies of a kernel
+    are read by the same two methods in one call.  Phase 5's batches: B =
+    128 x L = 19968, CCCTAAA k = 5 (sum) and k = 7 (greedy), lean wire,
+    [256, 1000] ends at k = 7 and k = 5, and binseg_l2 on DIR's sum_signal
+    y of that batch and of 4 reads of 1,048,576 bases (y [4, 174747]),
     built here with numpy alone so that nothing but the kernels' wrappers
-    comes from DIR.  The step-1 count is DIR's step1_counts, or where DIR
-    has none its greedy_counts with one window over every offset.  Each
-    kernel is held against DIR's plain version first.  Prints a line a
-    kernel; no result line."""
+    comes from DIR (binseg_l2 at each one's own tiles).  The step-1 count
+    is DIR's step1_counts, or where DIR has none its greedy_counts with
+    one window over every offset.  Each kernel is held against DIR's plain
+    version first.  Prints a line a kernel; no result line."""
     import numpy as np
 
     sys.path.insert(0, os.path.abspath(root))
@@ -293,9 +303,11 @@ def _times_of(torch, root):
                          check=True).stdout.strip().splitlines()[0]
 
     def report(name, label, kern, plain):
-        got = kern()
+        got, want = kern(), plain()
         torch.cuda.synchronize()
-        assert torch.equal(got, plain()), f"{name} of {root} differs from its plain version"
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(map(torch.equal, got, want)), \
+            f"{name} of {root} differs from its plain version"
         queued, paced, _ = _median_ms(torch, kern, lambda: None)
         print(f"[time] {name} of {root} {label}: {paced:.4f} ms a launch paced by the host, "
               f"{queued:.4f} ms queued back to back, bit-identical to its plain version "
@@ -307,6 +319,25 @@ def _times_of(torch, root):
         report(name, f"B=128 L=19968 k={k} lean",
                lambda: getattr(cuda_kernels, name)(a, b, tab, **kw),
                lambda: getattr(cuda_kernels, name + "_plain")(a, b, tab, **kw))
+    nw = torch.from_numpy(np.maximum((lens - 100) // 6 + 1, 0).astype(np.int32)).cuda()
+    for name, k in (("sum_boundary", 5), ("greedy_boundary", 7)):
+        tab = table(k)
+        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+        report(name, f"B=128 L=19968 k={k} lean",
+               lambda: getattr(cuda_kernels, name)(a, b, tab, nw, **kw),
+               lambda: getattr(cuda_kernels, name + "_plain")(a, b, tab, nw, **kw))
+    mega = 1 << 20
+    codes4 = _reads(rng, 4, mega)
+    lens4 = np.full(4, mega, np.int32)
+    a4, b4 = torch.from_numpy(pack(codes4, lens4)).cuda(), torch.from_numpy(lens4).cuda()
+    for label, y, n in (
+            ("y [128, 3312]", cuda_kernels.sum_signal(a, b, table(5), k=5, window_size=100,
+                                                      slide=6, L=L, lean=True), nw),
+            ("y [4, 174747]", cuda_kernels.sum_signal(a4, b4, table(5), k=5, window_size=100,
+                                                      slide=6, L=mega, lean=True),
+             torch.from_numpy((lens4 - 100) // 6 + 1).cuda())):
+        report("binseg_l2", label, lambda: cuda_kernels.binseg_l2(y, n),
+               lambda: cuda_kernels.binseg_l2_device(y, n))
     for k in (7, 5):
         tab = table(k)
         if hasattr(cuda_kernels, "step1_counts"):
@@ -799,8 +830,12 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         y_d, nw_d = torch.from_numpy(y.astype(np.int32)).to(dev), torch.from_numpy(nw).to(dev)
         want = changepoints(label, y_d, y_d, nw_d)
         assert torch.equal(want[0].cpu(), ops.binseg_l2(y_d.cpu(), nw_d.cpu())[0]), label
-        print(f"[kernel] binseg_l2 {label}: (t, has) bit-identical to plain torch, "
-              f"t {want[0].tolist()}, has {want[1].to(torch.uint8).tolist()}")
+        for tw in (32, 100, 2048):
+            agree_boundary("binseg_l2", f"{label} tiles of {tw}",
+                           cuda_kernels.binseg_l2(y_d, nw_d, tile_windows=tw), want)
+        print(f"[kernel] binseg_l2 {label}: (t, has) bit-identical to plain torch at the "
+              f"plan's tiles {geometry.binseg_tiles(*y.shape)} and at tiles of 32, 100 and "
+              f"2,048 windows, t {want[0].tolist()}, has {want[1].to(torch.uint8).tolist()}")
     codes, lens = ragged(_reads(rng, 128, L, pattern="CCCTAA"))
     greedy_case("CCCTAA k=5 dense 2% invalid", dirty(codes), lens,
                 pack_kmer_table(telophrase_kmers("CCCTAA", 5)), 5, 100, 6, False)
@@ -1055,6 +1090,25 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
               f"time), no library call computes it (CUDA events, medians; {smi})")
         assert bd <= q, f"{kname}: {q} ms is under its bound of {bd} ms: the count is wrong"
 
+    def sweep_tiles(label, y_, nw_):
+        """binseg_l2 at tiles of 256 * V windows, V = 4, 8, 16, in turns
+        (there and back), queued; {tile: median ms}.  Each tile is held to
+        the plain version first."""
+        want = ops.binseg_l2_device(y_, nw_)
+        q = {tw: [] for tw in BINSEG_SWEEP}
+        for tw in BINSEG_SWEEP + BINSEG_SWEEP[::-1]:
+            agree_boundary("binseg_l2", f"{label} tiles of {tw}",
+                           cuda_kernels.binseg_l2(y_, nw_, tile_windows=tw), want)
+            q[tw].append(_queued_ms(torch, lambda: cuda_kernels.binseg_l2(
+                y_, nw_, tile_windows=tw), rounds=5))
+        med = {tw: statistics.median(v) for tw, v in q.items()}
+        plan = geometry.binseg_tiles(*y_.shape)
+        print(f"[time] binseg_l2 {label} at forced tiles: " + ", ".join(
+            f"{tw} windows ({geometry.binseg_tiles(*y_.shape, tw)[1]} a row) {ms:.4f} ms"
+            for tw, ms in med.items()) + f"; the plan takes {plan[0]} ({plan[1]} a row); "
+            f"queued back to back, in turns (CUDA events, medians; {smi})")
+        return med
+
     # Bounds, from this run's inputs.  Bytes: each input once, each output
     # once.  Operations: the 32-bit integer operations the function needs,
     # whatever the kernel's body spends.  A position whose k-mer lies
@@ -1116,8 +1170,11 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
           lambda: cuda_kernels.sum_signal(a, b, tab5, **kw5),
           lambda: cuda_kernels.sum_signal_plain(a, b, tab5, **kw5))
     y = cuda_kernels.sum_signal(a, b, tab5, **kw5)
+    agree_boundary("binseg_l2", "y [128, 3312]", cuda_kernels.binseg_l2(y, nw_dev),
+                   ops.binseg_l2_device(y, nw_dev))
     timed("binseg_l2", "y [128, 3312]", lambda: cuda_kernels.binseg_l2(y, nw_dev),
           lambda: ops.binseg_l2_device(y, nw_dev), reps=10)
+    tile_sweep = {"binseg_l2": sweep_tiles("y [128, 3312]", y, nw_dev)}
     timed("greedy_boundary", "B=128 L=19968 k=7 lean",
           lambda: cuda_kernels.greedy_boundary(a, b, tab7, nw_dev, **kw7),
           lambda: cuda_kernels.greedy_boundary_plain(a, b, tab7, nw_dev, **kw7), reps=10)
@@ -1177,8 +1234,11 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
           lambda: cuda_kernels.greedy_counts(a4, b4, tab7, **ckwg),
           lambda: cuda_kernels.greedy_counts_plain(a4, b4, tab7, **ckwg), reps=5)
     y4 = cuda_kernels.sum_signal(a4, b4, tab5, **kw5g)
+    agree_boundary("binseg_l2", f"y [{B4}, {W4}]", cuda_kernels.binseg_l2(y4, nw4),
+                   ops.binseg_l2_device(y4, nw4))
     timed("binseg_l2[grid]", f"y [{B4}, {W4}]", lambda: cuda_kernels.binseg_l2(y4, nw4),
           lambda: ops.binseg_l2_device(y4, nw4), reps=5)
+    tile_sweep["binseg_l2[grid]"] = sweep_tiles(f"y [{B4}, {W4}]", y4, nw4)
     del codes4, a4, y4
     ends = _reads(rng, 256, 1000)
     ends_len = np.full(256, 1000, np.int32)
@@ -1292,6 +1352,11 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     grid_keys = {n + "[grid]": {"block_windows": geometry.BLOCK_WINDOWS,
                                 "default_shape_grid_queued_ms": grid_default[n][0],
                                 "default_shape_queued_ms": grid_default[n][1]} for n in GRID}
+    for n in ("binseg_l2", "binseg_l2[grid]"):
+        shape = (B, W) if n == "binseg_l2" else (B4, W4)
+        tw, n_tiles = geometry.binseg_tiles(*shape)
+        grid_keys[n] = {"tile_windows": tw, "tiles_a_row": n_tiles,
+                        "tile_sweep_queued_ms": {str(t): ms for t, ms in tile_sweep[n].items()}}
     # step 1 at the main path's own table (k = 5) rides the step1_counts row
     k5 = {"k5_launches": e2e["k=5 auto"][1]["step1_counts"],
           "k5_ms": times["step1_counts k=5"][1], "k5_queued_ms": times["step1_counts k=5"][0],

@@ -134,3 +134,20 @@ def test_limb_arithmetic_vs_bignum():
     lo, hi = _mul_limbs_1(sq, d), _mul_limbs(sq, d)
     for i in range(len(a)):
         assert _limbs_value(lo, i) == _limbs_value(hi, i)
+
+
+@pytest.mark.parametrize("W,jump", [(10243, 5), (8193, 4)])
+def test_changepoint_matches_jax_at_tile_edges(W, jump):
+    """The inputs the tiled CUDA changepoint is held to on the card
+    (tests/test_torch_binseg_tiles.py::tile_edge_rows): ties across
+    2,048- and 4,096-window edges, odd W, n - 1 on an edge, a larger step
+    past n, y up to 2**30.  The port's plain version, which the card test
+    compares with, equals the JAX program on every row."""
+    from tests.test_torch_binseg_tiles import tile_edge_rows
+
+    y, n, known = tile_edge_rows(W, jump)
+    t, h = binseg_l2_device(torch.from_numpy(y), torch.from_numpy(n), jump=jump)
+    tj, hj = jax_binseg(jnp.asarray(y), jnp.asarray(n), jump=jump)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(tj))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(hj))
+    assert all(bool(h[i]) and int(t[i]) == want for i, want in known.items())

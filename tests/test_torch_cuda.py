@@ -95,30 +95,88 @@ def test_sum_boundary_matches_plain(dev, B, L, k, w, slide, lean):
     assert torch.equal(t.cpu(), tc) and torch.equal(has.cpu(), hc)
 
 
-@pytest.mark.parametrize("case", ["random", "constant", "two-limb", "big-y", "short"])
-def test_binseg_l2_matches_plain(dev, case):
+def _binseg_case(case, dev):
+    """(y [B, W] int32, n [B] int32, jump) on the card for binseg_l2: the
+    step-2 shape, all ties, the two-limb range, y up to 2**30, W < jump,
+    the rows built against tile edges (odd W, so rows start at every
+    residue of 16 bytes), a y whose buffer starts 4 bytes past a 16-byte
+    boundary, and enough tiles for thousands of blocks."""
+    from tests.test_torch_binseg_tiles import tile_edge_rows
+
     rng = np.random.default_rng(5)
-    y, n = {
-        "random": lambda: (rng.integers(1, 120, (64, 3312)), rng.integers(0, 3313, 64)),
-        "constant": lambda: (np.full((8, 3312), 7), np.array([3312, 0, 3, 4, 7, 100, 3311, 9])),
-        "two-limb": lambda: (rng.integers(0, 40, (4, 131080))
-                             + 3 * (np.arange(131080)[None, :] < 60000),
-                             np.array([131080, 131079, 70000, 12])),
-        "big-y": lambda: (rng.integers(0, 1 << 30, (8, 3000)),
-                          np.array([3000, 2999, 17, 4, 0, 1500, 3, 9])),
-        "short": lambda: (np.ones((3, 4)), np.array([4, 2, 0])),
-    }[case]()
-    y = torch.from_numpy(y.astype(np.int32)).to(dev)
-    n = torch.from_numpy(n.astype(np.int32)).to(dev)
+    jump = 5
+    if case.startswith("tile-edges"):
+        jump = int(case[-1])
+        y, n, _ = tile_edge_rows(10243 if jump == 5 else 8193, jump)
+    elif case == "misaligned":
+        y, n, _ = tile_edge_rows(8192, 5)
+        flat = torch.zeros(y.size + 1, dtype=torch.int32, device=dev)
+        flat[1:] = torch.from_numpy(y.ravel()).to(dev)
+        y_d = flat[1:].view(y.shape)
+        assert y_d.data_ptr() % 16 == 4
+        return y_d, torch.from_numpy(n).to(dev), jump
+    else:
+        y, n = {
+            "random": lambda: (rng.integers(1, 120, (64, 3312)), rng.integers(0, 3313, 64)),
+            "constant": lambda: (np.full((8, 3312), 7),
+                                 np.array([3312, 0, 3, 4, 7, 100, 3311, 9])),
+            "two-limb": lambda: (rng.integers(0, 40, (4, 131080))
+                                 + 3 * (np.arange(131080)[None, :] < 60000),
+                                 np.array([131080, 131079, 70000, 12])),
+            "big-y": lambda: (rng.integers(0, 1 << 30, (8, 3000)),
+                              np.array([3000, 2999, 17, 4, 0, 1500, 3, 9])),
+            "short": lambda: (np.ones((3, 4)), np.array([4, 2, 0])),
+            "many-blocks": lambda: (rng.integers(1, 120, (1024, 3312))
+                                    + 40 * (np.arange(3312)[None, :] < 1700),
+                                    rng.integers(0, 3313, 1024)),
+        }[case]()
+    return (torch.from_numpy(y.astype(np.int32)).to(dev),
+            torch.from_numpy(n.astype(np.int32)).to(dev), jump)
+
+
+def _binseg_agrees(y, n, jump, **kw):
+    """One binseg_l2 call: one launch counted, (t, has) bit for bit the
+    plain version's.  Returns (t, has)."""
     n0 = cuda_kernels.LAUNCHES["binseg_l2"]
-    t, has = cuda_kernels.binseg_l2(y, n)
+    t, has = cuda_kernels.binseg_l2(y, n, jump=jump, **kw)
     torch.cuda.synchronize()
     assert cuda_kernels.LAUNCHES["binseg_l2"] == n0 + 1
-    tp, hp = ops.binseg_l2_device(y, n)
-    assert torch.equal(t, tp) and torch.equal(has, hp)
+    tp, hp = ops.binseg_l2_device(y, n, jump=jump)
+    assert t.dtype == torch.int64 and has.dtype == torch.bool
+    assert torch.equal(t, tp) and torch.equal(has, hp), kw
+    return t, has
+
+
+BINSEG_CASES = ["random", "constant", "two-limb", "big-y", "short", "tile-edges-5",
+                "tile-edges-4", "misaligned", "many-blocks"]
+
+
+@pytest.mark.parametrize("case", BINSEG_CASES)
+def test_binseg_l2_matches_plain(dev, case):
+    y, n, jump = _binseg_case(case, dev)
+    t, has = _binseg_agrees(y, n, jump)
     if case == "constant":
         assert t.tolist() == [5] * 8 and has.tolist() == [True, False, False, False, True,
                                                           True, True, True]
+    if case.startswith("tile-edges"):
+        from tests.test_torch_binseg_tiles import tile_edge_rows
+
+        _, _, known = tile_edge_rows(y.shape[1], jump)
+        assert all(bool(has[i]) and int(t[i]) == w for i, w in known.items())
+
+
+@pytest.mark.parametrize("tile_windows", [0, 32, 100, 2048])
+def test_binseg_l2_forced_tiles(dev, tile_windows):
+    """Every case at a forced tile (32 and 100 windows: thousands of
+    blocks, tiles that end anywhere; 2,048: the long scans' tile at the
+    default shape) and at the plan's own; then the same inputs twice and a
+    smaller batch, so a row's ticket left behind by a launch would show."""
+    for case in BINSEG_CASES:
+        y, n, jump = _binseg_case(case, dev)
+        _binseg_agrees(y, n, jump, tile_windows=tile_windows)
+    y, n, jump = _binseg_case("tile-edges-5", dev)
+    for rows in (len(n), len(n), 3):
+        _binseg_agrees(y[:rows], n[:rows], jump, tile_windows=tile_windows)
 
 
 def test_boundary_wrappers_reject_bad_inputs(dev):

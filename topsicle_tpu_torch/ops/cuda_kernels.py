@@ -7,8 +7,9 @@
                  the same block, so only (t, has) leave the SM
   sum_signal     csrc/sum_signal.cu     the same body with y [B, W] written
                  to device memory instead
-  binseg_l2      csrc/binseg.cu         the exact changepoint alone
-                 (csrc/binseg.cuh on a y in device memory; replaces the
+  binseg_l2      csrc/binseg.cu         the exact changepoint alone on a y
+                 in device memory, each row in tiles of windows, a block a
+                 tile (csrc/binseg.cuh's tile functions; replaces the
                  program topsicle_tpu/ops/changepoint.py::binseg_l2_device);
                  follows sum_signal or greedy_signal
   greedy_boundary  csrc/greedy_signal.cu  step 2 for every other table in
@@ -89,7 +90,7 @@ STEP1_PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 # a 32-bit int and cuts it, so every entry is declared from this table.
 _WIRE = "pippipiiiiiii"       # packed, stride, lengths, invalid, stride, table, K, k .. W, B
 ENTRY_ARGS = {"sum_boundary": _WIRE + "piippp", "sum_signal": _WIRE + "ipp",
-              "binseg_l2": "piipiippp", "greedy_boundary": _WIRE + "piippp",
+              "binseg_l2": "piipiiiipppp", "greedy_boundary": _WIRE + "piippp",
               "greedy_signal": _WIRE + "ipp", "greedy_counts": _WIRE + "ipp",
               "step1_counts": "pippipiiiipp"}
 # topsicle_<name>_plan: what a launcher would do, without a launch (ints, then
@@ -357,12 +358,17 @@ def _check_sum_table(name: str, table: torch.Tensor, k: int) -> None:
 
 
 def binseg_l2(y_int: torch.Tensor, n_windows: torch.Tensor, jump: int = 5,
-              min_size: int = 2):
+              min_size: int = 2, tile_windows: int = 0):
     """Exact argmax changepoint per row of y_int [B, W] int32 with the
     valid-window counts n_windows [B] int32: (t [B] int64, has [B] bool).
     Bit-identical to ops.changepoint.binseg_l2_device, its plain version,
-    over that function's whole range (|A| < 2**63, D < 2**62), any W."""
+    over that function's whole range (|A| < 2**63, D < 2**62), any W.
+    Each row goes in tiles of windows, a block a tile
+    (ops.geometry.binseg_tiles); `tile_windows` > 0 forces the tile, for
+    checks and timings only.  One launch counted a call, whatever its
+    passes."""
     if y_int.device.type == "cpu":
+        geometry.binseg_tiles(*y_int.shape, tile_windows)
         return binseg_l2_device(y_int, n_windows, jump=jump, min_size=min_size)
     if y_int.device.type != "cuda":
         raise ValueError(f"binseg_l2 runs on cuda or cpu tensors, got {y_int.device}")
@@ -371,13 +377,19 @@ def binseg_l2(y_int: torch.Tensor, n_windows: torch.Tensor, jump: int = 5,
     _check(n_windows, "n_windows", torch.int32, 1, dev)
     B, W = y_int.shape
     _check_boundary_args("binseg_l2", n_windows, B, jump, min_size)
+    tw, n_tiles = geometry.binseg_tiles(B, W, tile_windows)
     if B == 0 or W == 0:
         return (torch.zeros(B, dtype=torch.int64, device=dev),
                 torch.zeros(B, dtype=torch.bool, device=dev))
     t = torch.empty(B, dtype=torch.int64, device=dev)
     has = torch.empty(B, dtype=torch.bool, device=dev)
+    # tile sums, the tiles' bests (|A|, D, t), partial sums, tickets: the
+    # launch writes all of it before it reads it
+    scratch = (torch.empty(B * (4 * n_tiles + 2), dtype=torch.int64, device=dev)
+               if n_tiles > 1 else None)
     _launch("binseg_l2", dev, y_int.data_ptr(), W, B, n_windows.data_ptr(), jump, min_size,
-            t.data_ptr(), has.data_ptr())
+            tw, n_tiles, None if scratch is None else scratch.data_ptr(), t.data_ptr(),
+            has.data_ptr())
     return t, has
 
 

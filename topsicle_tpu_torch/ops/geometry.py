@@ -243,3 +243,35 @@ def pick_route(entry: str, **geometry) -> Route:
         raise ValueError(f"{entry}: one window of {geometry['window_size']} bases at slide "
                          f"{geometry['slide']} does not fit a block's shared memory")
     return route
+
+
+# ---- binseg_l2's tiles -------------------------------------------------------------
+
+# csrc/binseg.cu cuts each row of y [B, W] into tiles of consecutive
+# windows, a block of 256 threads a tile, V = tile / 256 windows a thread.
+# A row of one tile is one launch; a row of several is two (the tile sums
+# first).  BINSEG_TILE and BINSEG_ONE_TILE come from a sweep of V over
+# {4, 8, 16} at y [128, 3,312] and [4, 174,747] (chip_smoke.py, PERF.md).
+BINSEG_THREADS = 256
+BINSEG_TILE = 2048              # windows a tile where a row takes several (V = 8)
+BINSEG_ONE_TILE = 4096          # a row of at most this many windows is one tile
+BINSEG_MAX_TILE = 8192          # csrc/binseg.cuh::kMaxTileWindows: 33 KB of shared memory
+
+
+def binseg_tiles(B: int, W: int, tile_windows: int = 0) -> tuple:
+    """(tile_windows, n_tiles) of a binseg_l2 launch on y [B, W]: the
+    windows a tile and the tiles a row, n_tiles = ceil(W / tile_windows).
+    `tile_windows` > 0 forces the tile (any count up to BINSEG_MAX_TILE
+    windows, or more where W is smaller: one tile), for checks and timings;
+    0 takes the plan, whose tile is a multiple of 256 windows."""
+    if tile_windows < 0:
+        raise ValueError(f"tile_windows must be >= 0, got {tile_windows}")
+    if tile_windows == 0:
+        tile_windows = BINSEG_ONE_TILE if W <= BINSEG_ONE_TILE else BINSEG_TILE
+    elif min(tile_windows, W) > BINSEG_MAX_TILE:
+        raise ValueError(f"binseg_l2 takes tiles of at most {BINSEG_MAX_TILE} windows, "
+                         f"got {tile_windows}")
+    n_tiles = max(-(-W // tile_windows), 1)
+    if B * n_tiles >= 2 ** 31:
+        raise ValueError(f"binseg_l2: {B} rows of {n_tiles} tiles pass a launch's grid")
+    return tile_windows, n_tiles
