@@ -21,7 +21,9 @@ line is printed):
                       dense (2% invalid) wires, a K = 31 / k = 13 table,
                       slide 1 / window 20 / k 7, a read too short for
                       a candidate (W < jump); y_int and (t, has), with
-                      ragged window counts that include 0, 3 and W
+                      ragged window counts that include 0, 3 and W;
+                      sum_boundary also forced onto clusters of 2, 4 and
+                      8 blocks a read
        binseg_l2:     on every y above and below, and alone on a constant
                       y (every candidate ties: the smallest t), a
                       [4, 131080] y (the plain version's two-limb range)
@@ -38,7 +40,9 @@ line is printed):
                       slide 1 / window 20 / k 7, AAAAAAA on reads that
                       are one run of A's, window 72 / slide 31 (a window's
                       bits straddle three plane words), window 200
-                      (J > 96); y_int, [B, K, W] counts and (t, has)
+                      (J > 96); y_int, [B, K, W] counts and (t, has);
+                      greedy_boundary also forced onto clusters of 2, 4
+                      and 8 blocks a read
        the window-block grid of sum_signal, greedy_signal and
                       greedy_counts (blocks of a read's windows, each staging
                       only the bases its windows read), binseg_l2 behind it:
@@ -50,6 +54,10 @@ line is printed):
                       1,000 windows a block (does not divide W) and 333 at
                       slide 7 (blocks start at bases that are no multiple of 4
                       or 8); each also against one block a read
+       the fused entries on a cluster: y [8, 59805] (L = 59,904 at slide 1,
+                      past one block), k = 5 lean and k = 7 dense, on the
+                      picker's cluster of 2 blocks a read and forced onto
+                      2, 4 and 8, n - 1 on a block's last window
        step1_counts:  [256, 1000] ends (rows of 1000, 0, 3 and k bases and
                       a run of A's among them) on both wires at CCCTAAA
                       k = 7 and k = 5, AAAAAAA, K = 33 (a second round of
@@ -76,11 +84,11 @@ line is printed):
        the plain step 1 must have run 0 times on the card
      then long scans, held the same way: --maxlengthtelo 60000 --slide 1
        on 32 reads of 60-70 kbp at k = 5 and --telophrase 7 (y [W] alone
-       passes a block's shared memory, so the fused entries are out:
-       sum_signal or greedy_signal, then binseg_l2), and --maxlengthtelo
-       1000000 --telophrase 5 7 --rawcountpattern on 8 reads of 0.5-1 Mbp
-       (the window-block grid of all three entries); each run's log must
-       name the route it took
+       passes a block's shared memory: sum_boundary or greedy_boundary on
+       a cluster of 2 blocks a read, one launch a batch), and
+       --maxlengthtelo 1000000 --telophrase 5 7 --rawcountpattern on 8
+       reads of 0.5-1 Mbp (the window-block grid of all three entries,
+       then binseg_l2); each run's log must name the route it took
      then processes, each a CLI started with --device cuda that prints
      its launch counts (which must not be 0): on four seeded files of
      1,024 / 512 / 256 / 256 reads, one process (outputs byte-identical
@@ -100,12 +108,21 @@ line is printed):
      block a read, binseg_l2 held to its plain version at y [128, 3312]
      and [4, 174747] and timed there at tiles of 1,024, 2,048 and 4,096
      windows in turns (the sweep that sets ops/geometry.py's tiles), the
+     fused changepoint's share (each fused entry less its signal entry),
+     the fused entries at the default shape on clusters of 1, 2 and 4
+     blocks a read in turns, on the cluster route at y [8, 59805] beside
+     the two launches it replaces (signal, then binseg_l2), and forced onto
+     a cluster at B = 4 x 1,048,576 beside the grid the picker takes there,
+     the
      step-2 launch paths (one
      model and two shards), and the end-to-end wall times, the
      multi-process ones included (on one card: process overhead)
 
 `python3 chip_smoke.py --times-of DIR` runs none of this: it times the
-sum_signal, greedy_signal, sum_boundary and greedy_boundary entries, the
+sum_signal, greedy_signal, sum_boundary and greedy_boundary entries (the
+last two also forced onto clusters of 1, 2 and 4 blocks a read where DIR's
+wrappers take cluster_windows), step 2 of a batch of 8 reads at
+--maxlengthtelo 60000 --slide 1 on the route DIR's picker takes, the
 step-1 count and binseg_l2 (at y [128, 3312] and [4, 174747]) of the
 checkout at DIR, through DIR's own wrappers, by phase 5's two methods and
 prints a line each, so that two commits' kernels can be read in one call.
@@ -115,6 +132,7 @@ The last three lines are the kernels' JSON record, the card's
 {"ok": true, "device": {...}}.
 """
 
+import functools
 import gzip
 import importlib.util
 import json
@@ -154,6 +172,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 67e12 / 4
 DELAY_N = 4096      # a float32 product of this order keeps the card busy ~3 ms
 BINSEG_SWEEP = (1024, 2048, 4096)      # binseg_l2's tiles timed: V = 4, 8, 16
+CLUSTER_SWEEP = (1, 2, 4)      # blocks a read of the fused entries timed at the default shape
 
 
 def _cuda_ms(torch, fn, reps):
@@ -326,6 +345,68 @@ def _times_of(torch, root):
         report(name, f"B=128 L=19968 k={k} lean",
                lambda: getattr(cuda_kernels, name)(a, b, tab, nw, **kw),
                lambda: getattr(cuda_kernels, name + "_plain")(a, b, tab, nw, **kw))
+    # the fused changepoint's share, each fused entry less its signal entry
+    # in turns: at the default table, at its first entry alone (the signal
+    # phase small), and with every read's n = 0 (no candidate: the scans and
+    # the reductions alone)
+    for body, k in (("sum", 5), ("greedy", 7)):
+        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+        fused_fn = getattr(cuda_kernels, body + "_boundary")
+        signal_fn = getattr(cuda_kernels, body + "_signal")
+        for label, tab, n in (("K=14", table(k), nw), ("K=1", table(k)[:1], nw),
+                              ("K=14, every n = 0", table(k), torch.zeros_like(nw))):
+            q = {"fused": [], "signal": []}
+            for which in ("signal", "fused", "fused", "signal"):
+                q[which].append(_queued_ms(torch, (lambda: fused_fn(a, b, tab, n, **kw))
+                                           if which == "fused" else
+                                           (lambda: signal_fn(a, b, tab, **kw)), rounds=5))
+            f, g = statistics.median(q["fused"]), statistics.median(q["signal"])
+            print(f"[time] changepoint share of {body}_boundary of {root} B=128 L=19968 k={k} "
+                  f"{label}: {body}_boundary {f:.4f} - {body}_signal {g:.4f} = {f - g:.4f} ms, "
+                  f"queued back to back, in turns (CUDA events, medians; {smi})")
+    # the fused entries forced onto clusters of C blocks a read (C = 1: one
+    # block), where DIR's wrappers take the argument
+    W = (L - 100) // 6 + 1
+    for name, k in (("sum_boundary", 5), ("greedy_boundary", 7)):
+        fn = getattr(cuda_kernels, name)
+        if "cluster_windows" not in fn.__code__.co_varnames:
+            continue
+        tab = table(k)
+        kw = dict(k=k, window_size=100, slide=6, L=L, lean=True)
+        for C in CLUSTER_SWEEP:
+            cw = -(-W // C) if C > 1 else W
+            report(name, f"B=128 L=19968 k={k} lean, cluster of {C} (forced)",
+                   lambda: fn(a, b, tab, nw, cluster_windows=cw, **kw),
+                   lambda: getattr(cuda_kernels, name + "_plain")(a, b, tab, nw, **kw))
+    # --maxlengthtelo 60000 --slide 1: the step-2 launches of the route DIR's
+    # picker takes (a fused entry, or a signal entry then binseg_l2)
+    from topsicle_tpu_torch.ops import geometry
+
+    L60, B60 = 59904, 8
+    codes60 = _reads(rng, B60, L60)
+    lens60 = rng.integers(L60 // 2, L60 + 1, B60).astype(np.int32)
+    a60 = torch.from_numpy(pack(codes60, lens60)).cuda()
+    b60 = torch.from_numpy(lens60).cuda()
+    nw60 = torch.from_numpy(np.maximum(lens60 - 100 + 1, 0).astype(np.int32)).cuda()
+    W60 = L60 - 100 + 1
+    for body, k in (("sum", 5), ("greedy", 7)):
+        tab = table(k)
+        kw = dict(k=k, window_size=100, slide=1, L=L60, lean=True)
+        route = geometry.find_route(body, L=L60, W=W60, K=int(tab.shape[0]), k=k,
+                                    window_size=100, slide=1, dense=False)
+        if route.fused:
+            def kern(fn=getattr(cuda_kernels, body + "_boundary"), tab=tab, kw=kw):
+                return fn(a60, b60, tab, nw60, **kw)
+            label = f"{body}_boundary ({route.kind}, {route.blocks(W60)} blocks a read)"
+        else:
+            def kern(fn=getattr(cuda_kernels, body + "_signal"), tab=tab, kw=kw, route=route):
+                y = fn(a60, b60, tab, block_windows=route.block_windows, **kw)
+                return cuda_kernels.binseg_l2(y, nw60)
+            label = f"{body}_signal ({route.kind}) then binseg_l2"
+        report(f"step 2 at --maxlengthtelo 60000 --slide 1 k={k}", f"B={B60}: {label}", kern,
+               lambda tab=tab, kw=kw: getattr(cuda_kernels, body + "_boundary_plain")(
+                   a60, b60, tab, nw60, **kw))
+    del codes60, a60
     mega = 1 << 20
     codes4 = _reads(rng, 4, mega)
     lens4 = np.full(4, mega, np.int32)
@@ -700,7 +781,9 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     k7 = pack_kmer_table(telophrase_kmers("CCCTAAA", 7))
     max_err = {n: 0 for n in cuda_kernels.LAUNCHES}
     GRID = ("sum_signal", "greedy_signal", "greedy_counts")     # entries with a grid
+    CLUSTER = ("sum_boundary", "greedy_boundary")              # entries with a cluster
     max_err.update({n + "[grid]": 0 for n in GRID})
+    max_err.update({n + "[cluster]": 0 for n in CLUSTER})
 
     def wire(codes, lens, lean):
         if lean:
@@ -736,6 +819,18 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         agree_boundary("binseg_l2", label, got, want)
         return want
 
+    def forced_clusters(kname, label, a, b, tab, nw, kw, want):
+        """A fused entry with each read forced onto a cluster of C = 2, 4
+        and 8 blocks (where W has that many windows), against the plain
+        (t, has)."""
+        W = ops.num_windows(kw["L"], kw["window_size"], kw["slide"])
+        for C in (2, 4, 8):
+            if W >= C:
+                cw = -(-W // C)
+                agree_boundary(kname + "[cluster]", f"{label} C={-(-W // cw)} (forced)",
+                               getattr(cuda_kernels, kname)(a, b, tab, nw, cluster_windows=cw,
+                                                            **kw), want)
+
     def case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
         tab = torch.from_numpy(table).to(dev)
         a, b = wire(codes, lens, lean)
@@ -747,15 +842,17 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         want = changepoints(label, y_k, y_p, nw)
         agree_boundary("sum_boundary", label, cuda_kernels.sum_boundary(a, b, tab, nw, **kw),
                        cuda_kernels.sum_boundary_plain(a, b, tab, nw, **kw))
+        forced_clusters("sum_boundary", label, a, b, tab, nw, kw, want)
         if cpu_check:
             y_c = cuda_kernels.sum_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **kw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
             t_c, h_c = cuda_kernels.sum_boundary(a.cpu(), b.cpu(), tab.cpu(), nw.cpu(), **kw)
             assert torch.equal(want[0].cpu(), t_c) and torch.equal(want[1].cpu(), h_c), \
                 f"{label}: (t, has) on the card differ from the CPU's"
-        print(f"[kernel] sum_signal, sum_boundary, binseg_l2 {label}: y_int "
-              f"{tuple(y_k.shape)} and (t, has) bit-identical to plain torch "
-              f"(n_windows {nw[:4].tolist()}..), {int(want[1].sum())} reads with a boundary")
+        print(f"[kernel] sum_signal, sum_boundary (one block and forced clusters of 2, 4 "
+              f"and 8 blocks a read), binseg_l2 {label}: y_int {tuple(y_k.shape)} and "
+              f"(t, has) bit-identical to plain torch (n_windows {nw[:4].tolist()}..), "
+              f"{int(want[1].sum())} reads with a boundary")
 
     def greedy_case(label, codes, lens, table, k, w, slide, lean, cpu_check=False):
         tab = torch.from_numpy(table).to(dev)
@@ -776,13 +873,15 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         want = changepoints(label, y_k, y_p, nw)
         agree_boundary("greedy_boundary", label,
                        cuda_kernels.greedy_boundary(a, b, tab, nw, **skw), want)
+        forced_clusters("greedy_boundary", label, a, b, tab, nw, skw, want)
         if cpu_check:
             y_c = cuda_kernels.greedy_signal_plain(a.cpu(), b.cpu(), tab.cpu(), **skw)
             assert torch.equal(y_k.cpu(), y_c), f"{label}: card differs from the CPU"
             t_c, h_c = cuda_kernels.greedy_boundary(a.cpu(), b.cpu(), tab.cpu(), nw.cpu(), **skw)
             assert torch.equal(want[0].cpu(), t_c) and torch.equal(want[1].cpu(), h_c), \
                 f"{label}: (t, has) on the card differ from the CPU's"
-        print(f"[kernel] greedy_signal, greedy_counts, greedy_boundary {label}: y_int "
+        print(f"[kernel] greedy_signal, greedy_counts, greedy_boundary (one block and "
+              f"forced clusters of 2, 4 and 8 blocks a read) {label}: y_int "
               f"{tuple(y_k.shape)}, counts {tuple(c_k.shape)} (max {int(c_k.max())}) and "
               f"(t, has) bit-identical to plain torch, binseg_l2's too, "
               f"{int(want[1].sum())} reads with a boundary")
@@ -938,6 +1037,40 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
               "2,331, 4,662, ..: no multiple of 4 or 8)", dirty(codes), lens, k7, 7, 100, 7,
               False, block_windows=333)
 
+    # ---- 3. the fused entries on a cluster: a read past one block ----------------
+    def cluster_case(label, codes, lens, table, k, w, slide, lean):
+        """sum_boundary and greedy_boundary where one block cannot hold a
+        read's y: on the picker's cluster, and forced onto clusters of 2, 4
+        and 8 blocks a read, against their plain versions."""
+        tab = torch.from_numpy(table).to(dev)
+        a, b = wire(codes, lens, lean)
+        Lw = a.shape[1] * 4
+        W = ops.num_windows(Lw, w, slide)
+        kw = dict(k=k, window_size=w, slide=slide, L=Lw, lean=lean)
+        nw = torch.from_numpy(ragged_windows(lens, w, slide, W)).to(dev)
+        nw[3] = -(-W // 2)                    # n - 1 on the first block's last window
+        routes = []
+        for body in ("sum", "greedy"):
+            route = geometry.pick_route(body, L=Lw, W=W, K=len(table), k=k, window_size=w,
+                                        slide=slide, dense=not lean)
+            assert route.kind == "cluster", (label, body, route)
+            kname = body + "_boundary"
+            want = getattr(cuda_kernels, kname + "_plain")(a, b, tab, nw, **kw)
+            agree_boundary(kname + "[cluster]", f"{label} C={route.blocks(W)} (the picker)",
+                           getattr(cuda_kernels, kname)(a, b, tab, nw, **kw), want)
+            forced_clusters(kname, label, a, b, tab, nw, kw, want)
+            routes.append(f"{kname} on {route.blocks(W)} blocks of {route.block_windows}")
+        print(f"[kernel] fused cluster {label} (y [{codes.shape[0]}, {W}] passes one block): "
+              f"{', '.join(routes)} windows (the picker) and forced onto 2, 4 and 8 blocks a "
+              f"read, (t, has) bit-identical to plain torch, {int(want[1].sum())} boundaries")
+
+    L60 = 59904               # --maxlengthtelo 60000: y [59,805] at slide 1
+    codes, lens = long_reads(8, L60)
+    cluster_case("L=59904 slide=1 k=5 lean", codes, lens, demo, 5, 100, 1, True)
+    cluster_case("L=59904 slide=1 k=7 dense 2% invalid", dirty(codes), lens, k7, 7, 100, 1,
+                 False)
+    del codes
+
     # step 1: [B * 2 ends, no_bp]; rows of 1000, 0, 3 and k bases, a run of A's
     ends = _reads(rng, 256, 1000)
     ends[0, :400] = 0
@@ -1038,19 +1171,21 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     n_raw = sum(n.startswith("rawcount_7_") for n in raw)
     assert n_raw > RAW_READS // 40, f"--rawcountpattern: {n_raw} rawcount CSVs"
     print(f"[e2e] --rawcountpattern: {n_raw} rawcount CSVs among them")
-    # long scans: past the fused entries (y [W] alone passes a block), then
-    # past every one-block layout (the window-block grid)
+    # long scans: past one fused block (y [W] alone passes a block: the fused
+    # entries on a cluster of a read's blocks), then past every one-block
+    # layout (the window-block grid of all three entries, then binseg_l2)
     long_fq, long_bp, mega_fq, mega_bp = long_inputs
-    past = "is past the fused kernel's shared memory: "
+    cluster60 = ("is past one block's shared memory: {}, on a cluster of 2 blocks a read "
+                 "(29903 windows a block)")
     drive("--maxlengthtelo 60000 --slide 1 k=5", "portlong5", "oraclelong5",
-          ["sum_signal", "binseg_l2", "step1_counts"], *LONG_ARGS, inp=long_fq,
+          ["sum_boundary", "step1_counts"], *LONG_ARGS, inp=long_fq,
           n_reads=LONG_READS, bases=long_bp, slide=1, batch=8,
-          logged=["INFO: scan length 59904",
-                  past + "sum_signal then binseg_l2, one block a read"])
+          logged=["INFO: scan length 59904", cluster60.format("sum_boundary")])
     drive("--maxlengthtelo 60000 --slide 1 --telophrase 7", "portlong7", "oraclelong7",
-          ["greedy_signal", "binseg_l2", "step1_counts"], *LONG_ARGS, "--telophrase", "7",
+          ["greedy_boundary", "step1_counts"], *LONG_ARGS, "--telophrase", "7",
           inp=long_fq, n_reads=LONG_READS, bases=long_bp, slide=1, batch=8,
-          logged=[past + "greedy_signal then binseg_l2, one block a read"])
+          logged=[cluster60.format("greedy_boundary")])
+    past = "is past the fused kernel's shared memory: "
     on_grid = f"on the window-block grid ({geometry.BLOCK_WINDOWS} windows a block)"
     mega = drive("--maxlengthtelo 1000000 --telophrase 5 7 --rawcountpattern", "portmega",
                  "oraclemega",
@@ -1184,6 +1319,85 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     timed("greedy_counts", "rawcounts [128, 14, 3312] k=7 lean",
           lambda: cuda_kernels.greedy_counts(a, b, tab7, **ckw),
           lambda: cuda_kernels.greedy_counts_plain(a, b, tab7, **ckw), reps=10)
+    # The fused changepoint's share: each fused entry less its signal entry
+    # (y written out) in the same run, against the changepoint's own bound
+    # (2 operations a window, 40 a candidate)
+    cp_share = {}
+    for kname, signal in (("sum_boundary", "sum_signal"), ("greedy_boundary", "greedy_signal")):
+        cp_share[kname] = times[kname][0] - times[signal][0]
+        print(f"[time] the changepoint fused in {kname}: {kname} {times[kname][0]:.4f} - "
+              f"{signal} {times[signal][0]:.4f} = {cp_share[kname]:.4f} ms queued, against its "
+              f"bound {binseg_ops / INT32_OPS_PER_S * 1e3:.5f} ms ({binseg_ops} operations; "
+              f"CUDA events, medians; {smi})")
+    # the fused entries on clusters of C blocks a read at the default shape,
+    # in turns (the sweep that sets ops/geometry.py's choice of one block)
+    cluster_sweep = {}
+    for kname, kern in (
+            ("sum_boundary", lambda cw: cuda_kernels.sum_boundary(a, b, tab5, nw_dev,
+                                                                   cluster_windows=cw, **kw5)),
+            ("greedy_boundary", lambda cw: cuda_kernels.greedy_boundary(
+                a, b, tab7, nw_dev, cluster_windows=cw, **kw7))):
+        q = {C: [] for C in CLUSTER_SWEEP}
+        for C in CLUSTER_SWEEP + CLUSTER_SWEEP[::-1]:
+            cw = -(-W // C) if C > 1 else W
+            q[C].append(_queued_ms(torch, lambda: kern(cw), rounds=5))
+        cluster_sweep[kname] = {C: statistics.median(v) for C, v in q.items()}
+        print(f"[time] {kname} B=128 L=19968 on clusters of C blocks a read (forced): " + ", ".join(
+            f"C={C} {ms:.4f} ms" for C, ms in cluster_sweep[kname].items())
+            + f"; queued back to back, in turns (CUDA events, medians; {smi})")
+    # The cluster route where the picker takes it: --maxlengthtelo 60000
+    # --slide 1, one batch of 8 reads (y [8, 59805]), beside the two launches
+    # a read past one block took before (the signal entry one block a read,
+    # then binseg_l2), in turns
+    B60, L60 = 8, 59904
+    codes60, lens60 = long_reads(B60, L60)
+    a60, b60 = wire(codes60, lens60, True)
+    W60 = ops.num_windows(L60, 100, 1)
+    nw60 = torch.from_numpy(batching.window_counts_for_lengths(lens60, 100, 1)).to(dev)
+    kw60 = {5: dict(kw5, slide=1, L=L60), 7: dict(kw7, slide=1, L=L60)}
+    inside60 = int(positions_inside(lens60, 5, (W60 - 1) + 95).sum())
+    ops60 = {"sum_boundary": 8 * inside60 + 3 * inside60 + 4 * B60 * W60}
+    ops60["greedy_boundary"] = greedy_ops(
+        lens60, kmers7, 7, 93, W60, 1,
+        cuda_kernels.greedy_counts_plain(a60, b60, tab7, k=7, J=93, W=W60, slide=1, L=L60,
+                                         lean=True))
+    binseg60 = B60 * (2 * W60 + 40 * (W60 // 5))
+    cluster60 = {}
+    for kname, body, k, tab in (("sum_boundary", "sum", 5, tab5),
+                                ("greedy_boundary", "greedy", 7, tab7)):
+        route = geometry.pick_route(body, L=L60, W=W60, K=14, k=k, window_size=100, slide=1,
+                                    dense=False)
+        assert route.kind == "cluster", route
+        cname = kname + "[cluster]"
+        bounds[cname] = _bound(a60.numel() + b60.numel() * 4 + B60 * 4 + B60 * 9,
+                              ops60[kname] + binseg60)
+        kw = kw60[k]
+        fused = getattr(cuda_kernels, kname)
+        signal = getattr(cuda_kernels, body + "_signal")
+        want = getattr(cuda_kernels, kname + "_plain")(a60, b60, tab, nw60, **kw)
+        agree_boundary(cname, f"B={B60} L={L60} slide=1", fused(a60, b60, tab, nw60, **kw), want)
+        timed(cname, f"B={B60} L={L60} slide=1 k={k} lean, {route.blocks(W60)} blocks a read",
+              lambda: fused(a60, b60, tab, nw60, **kw),
+              lambda: getattr(cuda_kernels, kname + "_plain")(a60, b60, tab, nw60, **kw),
+              reps=5)
+
+        def two():
+            return cuda_kernels.binseg_l2(signal(a60, b60, tab, block_windows=0, **kw), nw60)
+        agree_boundary("binseg_l2", f"B={B60} L={L60} slide=1 after {body}_signal", two(), want)
+        q = {"fused": [], "two": []}
+        for which in ("two", "fused", "fused", "two"):
+            q[which].append(_queued_ms(torch, (lambda: fused(a60, b60, tab, nw60, **kw))
+                                       if which == "fused" else two, rounds=5))
+        cluster60[cname] = {"blocks_a_read": route.blocks(W60),
+                           "cluster_windows": route.block_windows,
+                           "in_turns_queued_ms": statistics.median(q["fused"]),
+                           "two_launch_queued_ms": statistics.median(q["two"])}
+        print(f"[time] {cname} B={B60} L={L60} slide 1: one fused launch on "
+              f"{route.blocks(W60)} blocks a read {cluster60[cname]['in_turns_queued_ms']:.4f} ms; "
+              f"{body}_signal (one block a read) then binseg_l2, the two launches before, "
+              f"{cluster60[cname]['two_launch_queued_ms']:.4f} ms; queued back to back, in "
+              f"turns (CUDA events, medians; {smi})")
+    del codes60, a60
     # The window-block grid.  First forced at the default shape, where no
     # path of the engine takes it (256 blocks of at most 2,048 windows for
     # 128 of 3,312), in turns with one block a read; then where the picker
@@ -1239,6 +1453,38 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     timed("binseg_l2[grid]", f"y [{B4}, {W4}]", lambda: cuda_kernels.binseg_l2(y4, nw4),
           lambda: ops.binseg_l2_device(y4, nw4), reps=5)
     tile_sweep["binseg_l2[grid]"] = sweep_tiles(f"y [{B4}, {W4}]", y4, nw4)
+    # why the picker leaves a read that needs the grid on the grid: the fused
+    # entries forced onto the fewest cluster blocks that fit here, beside the
+    # grid signal then binseg_l2, in turns
+    mega_cluster = {}
+    for kname, body, tab, kwg in (("sum_boundary", "sum", tab5, kw5g),
+                                  ("greedy_boundary", "greedy", tab7, kw7g)):
+        assert geometry.pick_route(body, L=MEGA, W=W4, K=14, k=kwg["k"], window_size=100,
+                                   slide=6, dense=False).kind == "grid"
+        cw = next(-(-W4 // C) for C in range(2, geometry.MAX_CLUSTER + 1)
+                  if geometry._plan(body, MEGA, W4, 14, kwg["k"], 100 - kwg["k"], 6, False,
+                                    True, -(-W4 // C)))
+        route = geometry.Route("cluster", cw)
+        fused = functools.partial(getattr(cuda_kernels, kname), cluster_windows=cw)
+        signal = getattr(cuda_kernels, body + "_signal")
+        want = ops.binseg_l2_device(
+            getattr(cuda_kernels, body + "_signal_plain")(a4, b4, tab, **kwg), nw4)
+        agree_boundary(kname + "[cluster]", f"B={B4} L={MEGA}", fused(a4, b4, tab, nw4, **kwg),
+                       want)
+        q = {"fused": [], "two": []}
+        for which in ("two", "fused", "fused", "two"):
+            q[which].append(_queued_ms(
+                torch, (lambda: fused(a4, b4, tab, nw4, **kwg)) if which == "fused" else
+                (lambda: cuda_kernels.binseg_l2(signal(a4, b4, tab, **kwg), nw4)), rounds=5))
+        mega_cluster[kname + "[cluster]"] = {
+            "megabase_blocks_a_read": route.blocks(W4),
+            "megabase_queued_ms": statistics.median(q["fused"]),
+            "megabase_grid_two_launch_queued_ms": statistics.median(q["two"])}
+        print(f"[time] {kname}[cluster] B={B4} L={MEGA} slide 6, forced: one fused launch "
+              f"on {route.blocks(W4)} blocks a read {statistics.median(q['fused']):.4f} ms; "
+              f"{body}_signal on the grid then binseg_l2 (the picker's route) "
+              f"{statistics.median(q['two']):.4f} ms; queued back to back, in turns (CUDA "
+              f"events, medians; {smi})")
     del codes4, a4, y4
     ends = _reads(rng, 256, 1000)
     ends_len = np.full(256, 1000, np.int32)
@@ -1335,12 +1581,17 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
             "--telophrase 7 --rawcountpattern"),
            ("step1_counts", "step1_counts.cu", step1, "--telophrase 7")]
     # the window-block grid of the three entries that have one, and the
-    # changepoint behind it: launches on the long-scan path that takes it
+    # changepoint behind it: launches on the long-scan path that takes it;
+    # the fused entries' cluster: launches on the 60 kbp paths
     mega_run = "--maxlengthtelo 1000000 --telophrase 5 7 --rawcountpattern"
     rec += [("sum_signal[grid]", "sum_signal.cu", sum_kernel, mega_run),
             ("greedy_signal[grid]", "greedy_signal.cu", greedy_kernel, mega_run),
             ("greedy_counts[grid]", "greedy_signal.cu", greedy_kernel, mega_run),
-            ("binseg_l2[grid]", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124", mega_run)]
+            ("binseg_l2[grid]", "binseg.cu", "topsicle_tpu/ops/changepoint.py:124", mega_run),
+            ("sum_boundary[cluster]", "sum_signal.cu", sum_kernel,
+             "--maxlengthtelo 60000 --slide 1 k=5"),
+            ("greedy_boundary[cluster]", "greedy_signal.cu", greedy_kernel,
+             "--maxlengthtelo 60000 --slide 1 --telophrase 7")]
     max_err["binseg_l2[grid]"] = max_err["binseg_l2"]
 
     def base(n):
@@ -1352,6 +1603,13 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
     grid_keys = {n + "[grid]": {"block_windows": geometry.BLOCK_WINDOWS,
                                 "default_shape_grid_queued_ms": grid_default[n][0],
                                 "default_shape_queued_ms": grid_default[n][1]} for n in GRID}
+    for n in CLUSTER:
+        grid_keys[n] = {
+            "changepoint_share_queued_ms": cp_share[n],
+            "changepoint_bound_ms": binseg_ops / INT32_OPS_PER_S * 1e3,
+            "cluster_sweep_queued_ms": {str(C): ms for C, ms in cluster_sweep[n].items()}}
+        grid_keys[n + "[cluster]"] = {**cluster60[n + "[cluster]"],
+                                      **mega_cluster[n + "[cluster]"]}
     for n in ("binseg_l2", "binseg_l2[grid]"):
         shape = (B, W) if n == "binseg_l2" else (B4, W4)
         tw, n_tiles = geometry.binseg_tiles(*shape)
@@ -1372,7 +1630,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         **(k5 if n == "step1_counts" else {}), **grid_keys.get(n, {})}
         for n, f, r, run in rec]}))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

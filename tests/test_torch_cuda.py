@@ -95,6 +95,99 @@ def test_sum_boundary_matches_plain(dev, B, L, k, w, slide, lean):
     assert torch.equal(t.cpu(), tc) and torch.equal(has.cpu(), hc)
 
 
+@pytest.mark.parametrize("C", [1, 2, 4, 8])
+@pytest.mark.parametrize("body,k", [("sum", 5), ("greedy", 7)])
+@pytest.mark.parametrize("lean", [True, False])
+def test_fused_entries_on_forced_clusters(dev, C, body, k, lean):
+    """sum_boundary and greedy_boundary with each read on a cluster of C
+    blocks (C = 1: one block), forced, against their plain versions: odd W
+    (667 windows), window counts of 0, 3 and W, n - 1 on a block's last
+    and first window, a read of one base throughout (a constant y: every
+    candidate ties across the blocks, the smallest t wins), and W < jump."""
+    codes, lens = _batch(C + k + lean, 24, 4096, lean)
+    codes[5, :lens[5]] = 0
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", k))).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    L = a.shape[1] * 4
+    kw = dict(k=k, window_size=100, slide=6, L=L, lean=lean)
+    W = ops.num_windows(L, 100, 6)
+    cw = -(-W // C) if C > 1 else W
+    assert W % 2 == 1 and -(-W // cw) == C
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    nw[:5] = (0, 3, W, cw, min(cw + 1, W))
+    nw[5] = W
+    nw = torch.from_numpy(nw).to(dev)
+    fused = getattr(cuda_kernels, body + "_boundary")
+    plain = getattr(cuda_kernels, body + "_boundary_plain")
+    n0 = cuda_kernels.LAUNCHES[body + "_boundary"]
+    t, has = fused(a, b, table, nw, cluster_windows=cw, **kw)
+    torch.cuda.synchronize()
+    assert cuda_kernels.LAUNCHES[body + "_boundary"] == n0 + 1
+    tp, hp = plain(a, b, table, nw, **kw)
+    assert t.dtype == torch.int64 and has.dtype == torch.bool
+    assert torch.equal(t, tp) and torch.equal(has, hp) and has.any()
+    assert int(t[5]) == 5 and bool(has[5])          # a constant y: the smallest t
+    # a read too short for a candidate, and 3 windows a block
+    short = _wire(np.ascontiguousarray(codes[:4, :112]), np.full(4, 112, np.int32), True, dev)
+    nws = torch.full((4,), 3, dtype=torch.int32, device=dev)
+    skw = dict(kw, L=112, lean=True)
+    assert ops.num_windows(112, 100, 6) == 3
+    for c in (1, 3):
+        got = fused(*short, table, nws, cluster_windows=c, **skw)
+        want = plain(*short, table, nws, **skw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[0].tolist() == [0] * 4 and not got[1].any()
+
+
+def test_cluster_route_is_placeable(dev):
+    """No fallback: every cluster the picker can return (a sweep of
+    geometries, and every C at the largest block) is one the card keeps
+    resident (cudaOccupancyMaxActiveClusters > 0); a launch past 8 blocks a
+    read is refused, not rerouted."""
+    seen = set()
+    for L, slide, w, k, K in _sweep():
+        W = ops.num_windows(L, w, slide)
+        for body in ("sum", "greedy"):
+            if W == 0 or (body == "sum" and K > cuda_kernels.MAX_ENTRIES):
+                continue
+            for dense in (False, True):
+                route = geometry.find_route(body, L=L, W=W, K=K, k=k, window_size=w,
+                                            slide=slide, dense=dense)
+                if route is None or route.kind != "cluster":
+                    continue
+                plan = geometry._plan(body, L, W, K, k, w - k, slide, dense, True,
+                                      route.block_windows)
+                key = (body, plan.n_blocks, plan.smem_bytes)
+                if key in seen:
+                    continue
+                seen.add(key)
+                assert 2 <= plan.n_blocks <= geometry.MAX_CLUSTER
+                assert cuda_kernels.max_active_clusters(
+                    body, L=L, W=W, K=K, k=k, J=w - k, slide=slide, dense=dense,
+                    block_windows=route.block_windows) > 0, key
+    assert len(seen) > 10, seen
+    # C = 2 .. 8 at close to a block's whole shared memory (a read of L
+    # bases at slide 1 whose blocks hold ~28,000 windows each)
+    for C in range(2, geometry.MAX_CLUSTER + 1):
+        L = 28_000 * C + 99
+        W = ops.num_windows(L, 100, 1)
+        plan = geometry.sum_plan(L, W, 5, 95, 1, False, True, -(-W // C))
+        assert plan is not None and plan.n_blocks == C and plan.smem_bytes > 200_000, plan
+        assert cuda_kernels.max_active_clusters("sum", L=L, W=W, K=14, k=5, J=95, slide=1,
+                                                dense=False, block_windows=-(-W // C)) > 0
+    codes, lens = _batch(9, 2, 8192, True)
+    a, b = _wire(codes, lens, True, dev)
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", 5))).to(dev)
+    nw = torch.from_numpy(batching.window_counts_for_lengths(lens, 100, 6)).to(dev)
+    W = ops.num_windows(8192, 100, 6)
+    n0 = dict(cuda_kernels.LAUNCHES)
+    for fn in (cuda_kernels.sum_boundary, cuda_kernels.greedy_boundary):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            fn(a, b, table, nw, k=5, window_size=100, slide=6, L=8192, lean=True,
+               cluster_windows=-(-W // 9))
+    assert cuda_kernels.LAUNCHES == n0
+
+
 def _binseg_case(case, dev):
     """(y [B, W] int32, n [B] int32, jump) on the card for binseg_l2: the
     step-2 shape, all ties, the two-limb range, y up to 2**30, W < jump,
@@ -386,12 +479,15 @@ def test_greedy_wrapper_rejects_bad_inputs(dev):
     assert torch.equal(cuda_kernels.greedy_counts(a, b, table, **ckw),
                        cuda_kernels.greedy_counts_plain(a, b, table, **ckw))
     # what is still refused: the fused entry handed a read the picker would
-    # not hand it (the launcher's refusal, a fault of the caller), and a
-    # step-1 row that passes a block
+    # not hand it (one block a read, or a cluster past 8 blocks: the
+    # launcher's refusal, a fault of the caller), and a step-1 row that
+    # passes a block
     n1 = torch.tensor([1_200_000], dtype=torch.int32, device=dev)
     n0 = dict(cuda_kernels.LAUNCHES)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        cuda_kernels.greedy_boundary(la, lb, table, n1, **lkw)
+    W1 = ops.num_windows(1_200_000, 100, 6)
+    for cw in (W1, -(-W1 // 9)):
+        with pytest.raises(RuntimeError, match="shared memory"):
+            cuda_kernels.greedy_boundary(la, lb, table, n1, cluster_windows=cw, **lkw)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_kernels.step1_counts(la, lb, table, k=7, L=1_200_000, lean=True)
     assert cuda_kernels.LAUNCHES == n0          # a refused launch is not counted
@@ -594,7 +690,7 @@ def test_long_read_takes_the_grid(dev, body, k, slide, w, lean):
     a, b = _wire(codes, lens, lean, dev)
     W = ops.num_windows(L, w, slide)
     route = geometry.pick_route(body, L=L, W=W, K=int(table.shape[0]), k=k, window_size=w,
-                                slide=slide, dense=not lean)
+                                slide=slide, dense=not lean, fused=False)
     assert route.kind == "grid" and route.block_windows == geometry.BLOCK_WINDOWS
     skw = dict(k=k, window_size=w, slide=slide, L=L, lean=lean)
     signal = getattr(cuda_kernels, body + "_signal")
@@ -632,10 +728,12 @@ def _sweep():
 def test_picker_agrees_with_launchers(dev):
     """ops.geometry is the launchers' mirror: over a sweep of geometries
     its plans equal what the built library's launchers would do (shared
-    memory, windows a block, tiles, groups), it never picks a launch that a
-    launcher refuses, and never leaves the fused route, or one block a
-    read, while the launcher would have taken it."""
-    n = {"fused": 0, "read": 0, "grid": 0}
+    memory, windows a block, tiles, groups, clusters of 2 to 9 blocks), it
+    never picks a launch that a launcher refuses, and never leaves one
+    fused block, the fewest blocks of a fused cluster (where one block a
+    read fits), or one block a read, while the launcher would have taken
+    it."""
+    n = {"fused": 0, "cluster": 0, "read": 0, "grid": 0}
     for L, slide, w, k, K in _sweep():
         W = ops.num_windows(L, w, slide)
         if W == 0:
@@ -647,8 +745,9 @@ def test_picker_agrees_with_launchers(dev):
             for dense in (False, True):
                 g = dict(L=L, W=W, K=K, k=k, J=w - k, slide=slide, dense=dense)
                 where = f"{entry} {g}"
+                cluster_wb = [-(-W // C) for C in range(2, geometry.MAX_CLUSTER + 2)]
                 for boundary in (True, False):
-                    for wb in (0, geometry.BLOCK_WINDOWS, 64, 1):
+                    for wb in (0, geometry.BLOCK_WINDOWS, 64, 1, *cluster_wb):
                         mine = geometry._plan(body, L, W, K, k, w - k, slide, dense, boundary, wb)
                         theirs = cuda_kernels.launcher_plan(body, boundary=boundary,
                                                             block_windows=wb, **g)
@@ -656,11 +755,20 @@ def test_picker_agrees_with_launchers(dev):
                 route = geometry.pick_route(entry, L=L, W=W, K=K, k=k, window_size=w,
                                             slide=slide, dense=dense)
                 n[route.kind] += 1
-                fused_fits = entry != "counts" and \
+                one_fits = entry != "counts" and \
                     cuda_kernels.launcher_plan(body, boundary=True, **g) is not None
+                # the fewest blocks a read on which the launcher takes the fused entry
+                clusters = [] if entry == "counts" else [
+                    C for C, wb in zip(range(2, geometry.MAX_CLUSTER + 1), cluster_wb)
+                    if wb < W and cuda_kernels.launcher_plan(body, boundary=True,
+                                                             block_windows=wb, **g)]
                 read_fits = cuda_kernels.launcher_plan(body, boundary=False, **g) is not None
-                assert route.fused == fused_fits, where
-                assert (route.kind == "read") == (read_fits and not fused_fits), where
+                assert (route.kind == "fused") == one_fits, where
+                assert (route.kind == "cluster") == \
+                    (not one_fits and read_fits and bool(clusters)), where
+                if route.kind == "cluster":
+                    assert route.block_windows == -(-W // clusters[0]), where
+                assert (route.kind == "read") == (read_fits and not route.fused), where
                 if route.kind == "grid":
                     taken = cuda_kernels.launcher_plan(body, boundary=False,
                                                        block_windows=route.block_windows, **g)
@@ -669,15 +777,17 @@ def test_picker_agrees_with_launchers(dev):
 
 
 @pytest.mark.parametrize("phrase,kernel,slide,L,launched", [
-    (5, None, 1, 59904, ["sum_signal", "binseg_l2"]),       # y [W] alone passes a block
-    (7, None, 1, 59904, ["greedy_signal", "binseg_l2"]),
-    (5, None, 6, 59904, ["sum_boundary"]),                   # slide 6: still fused
+    (5, None, 1, 59904, ["sum_boundary"]),       # y [W] alone passes a block: a cluster of 2
+    (7, None, 1, 59904, ["greedy_boundary"]),
+    (5, None, 6, 59904, ["sum_boundary"]),                   # slide 6: one block
     (5, "sum", 6, 999936, ["sum_signal", "binseg_l2"]),      # the grid
-    (7, None, 6, 999936, ["greedy_signal", "binseg_l2"])])
+    (7, "greedy", 1, 59904, ["greedy_signal", "binseg_l2"]),  # by name: one block a read
+    (7, None, 6, 999936, ["greedy_signal", "binseg_l2"])])   # the grid, not a cluster
 def test_model_routes_long_scans_on_card(dev, phrase, kernel, slide, L, launched):
-    """The model asks the picker before it launches: a scan past the fused
-    block runs its signal kernel and binseg_l2, names the route once in
-    its log, and gives the CPU model's (t, has) and rawcounts."""
+    """The model asks the picker before it launches: a scan past one fused
+    block runs the fused entry on a cluster of its blocks where one block a
+    read would fit, else its signal kernel and binseg_l2, names the route
+    once in its log, and gives the CPU model's (t, has) and rawcounts."""
     kmers = telophrase_kmers("CCCTAAA", phrase)
     lines = []
     model = TorchScanModel(kmers, device=dev, window_size=100, slide=slide, kernel=kernel,
@@ -691,10 +801,15 @@ def test_model_routes_long_scans_on_card(dev, phrase, kernel, slide, L, launched
     assert {n: c for n, c in cuda_kernels.LAUNCHES.items() if c} == dict.fromkeys(launched, 2)
     tc, hc = cpu.step2_boundary(codes, nw, lens)
     assert np.array_equal(t, tc) and np.array_equal(has, hc) and has.any()
-    assert len(lines) == (0 if launched == ["sum_boundary"] else 1), lines
+    W = ops.num_windows(L, 100, slide)
+    route = model.route(model.kernel, L, True, fused=model.fused)[1]
+    logged = route.kind != "fused" and (model.fused or route.kind == "grid")
+    assert len(lines) == int(logged), lines
     if lines:
         assert f"INFO: scan length {L}" in lines[0] and launched[0] in lines[0]
-        assert ("window-block grid" in lines[0]) == (L > 500_000)
+        assert ("window-block grid" in lines[0]) == (route.kind == "grid")
+        assert (f"on a cluster of {route.blocks(W)} blocks a read" in lines[0]) == \
+            (route.kind == "cluster")
     if slide == 6:
         raw = model.rawcounts(codes[:1], lens[:1])
         assert np.array_equal(raw, cpu.rawcounts(codes[:1], lens[:1])) and raw.max() > 1

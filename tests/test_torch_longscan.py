@@ -1,5 +1,6 @@
 """Long scans in the port: the route picker against hand-reckoned
-thresholds of the CUDA kernels' shared-memory layouts, the window-block
+thresholds of the CUDA kernels' shared-memory layouts (one fused block, a
+fused cluster of up to 8, one block a read, the grid), the window-block
 grid's geometry against a brute-force walk of the bases each window reads
 (and against the plain signal computed from a block's staged bases alone),
 and one engine run at --maxlengthtelo 60000 --slide 1 against JaxEngine and
@@ -57,35 +58,75 @@ def test_default_geometry_stays_fused():
 def test_maxlengthtelo_60000_slide_1_leaves_the_fused_route():
     """static_scan_length() of --maxlengthtelo 60000 --trimfirst 100 is
     59,904; at slide 1 that is 59,805 windows, and y [W] alone is 239,220
-    bytes of a block's 230,400: no fused entry, but one block a read (y in
-    device memory) fits both bodies."""
+    bytes of a block's 230,400: no fused block, but a cluster of two blocks
+    of 29,903 windows each, each with its half of y (123,360 bytes at
+    tile_slot positions) beside its window block's rows, fits both bodies:
+    one fused launch a batch, y never in device memory."""
     cfg = TopsicleConfig(input_dir="x", output_dir="", pattern="CCCTAAA", slide=1,
                          maxlengthtelo=60000, trimfirst=100)
     L = cfg.static_scan_length()
     assert L == 59904 and ops.num_windows(L, 100, 1) == 59805
     assert 4 * 59805 == 239220 > LIMIT
+    assert geometry.slice_bytes(29903) == geometry.round16(4 * (29903 + 934)) == 123360
     for dense in (False, True):
-        assert _route("sum", L, 1, dense=dense) == ("read", 0)
-        assert _route("greedy", L, 1, k=7, dense=dense) == ("read", 0)
-    # the same length at slide 6 is 9,968 windows: fused
+        assert _route("sum", L, 1, dense=dense) == ("cluster", 29903)
+        assert _route("greedy", L, 1, k=7, dense=dense) == ("cluster", 29903)
+        assert _route("sum", L, 1, dense=dense).blocks(59805) == 2
+        # asked for by name, the signal kernels still take one block a read
+        assert _route("sum", L, 1, dense=dense, fused=False) == ("read", 0)
+    # the same length at slide 6 is 9,968 windows: one fused block
     assert _route("sum", L, 6) == ("fused", 0) and _route("greedy", L, 6, k=7) == ("fused", 0)
+
+
+@pytest.mark.parametrize("entry,k", [("sum", 5), ("greedy", 7), ("counts", 7)])
+@pytest.mark.parametrize("dense", [False, True])
+def test_megabase_fused_entries_stay_on_the_grid(entry, k, dense):
+    """--maxlengthtelo 1000000 at slide 6: 999,936 bases, 166,640 windows.
+    A fused cluster would fit (5 blocks of 33,328 windows), but a read that
+    needs the grid gets 82 blocks from it: measured on the card the cluster
+    was 3.7x (sum) and 25x (greedy) slower than the grid and binseg_l2, so
+    the picker takes a cluster only in place of one block a read."""
+    L, W = 999936, 166640
+    assert ops.num_windows(L, 100, 6) == W
+    assert _route(entry, L, 6, k=k, dense=dense) == ("grid", geometry.BLOCK_WINDOWS)
+    assert geometry._plan(entry, L, W, 14, k, 100 - k, 6, dense, False) is None
+    if entry == "sum":
+        assert geometry.sum_plan(L, W, k, 100 - k, 6, dense, True, -(-W // 5)) is not None
+
+
+def test_past_eight_cluster_blocks_takes_one_block_a_read():
+    """A read that one block a read holds but whose y passes 8 fused blocks
+    (420,000 bases at slide 1: 52,488 windows a block, y alone 216 KB)
+    takes one block a read and binseg_l2; a fused plan of 9 blocks is
+    refused like one past shared memory."""
+    L = 420_000
+    W = ops.num_windows(L, 100, 1)
+    assert _route("sum", L, 1) == ("read", 0)
+    assert geometry.sum_plan(L, W, 5, 95, 1, False, True, -(-W // 8)) is None
+    assert geometry.sum_plan(19968, 3312, 5, 95, 6, False, True, 368) is None      # 9 blocks
+    assert geometry.sum_plan(19968, 3312, 5, 95, 6, False, True, 414).n_blocks == 8
+    assert geometry.sum_plan(19968, 3312, 5, 95, 6, False, False, 368).n_blocks == 9
 
 
 def test_dense_wire_leaves_the_fused_route_before_the_lean_one():
     """The greedy body at L = 215,040, slide 6, K = 14, k = 7, by hand:
     W = 35,824; wire round16(53,760 + 8) = 53,776; table round16(4 * 22) =
-    96; flags 16; y 4 * 35,824 = 143,296; one plane of 6,721 words =
-    26,884: 224,068 bytes, inside 230,400.  The invalid plane adds
-    round16(26,880 + 8) = 26,896: 250,964, outside.  Without y both fit."""
+    96; flags 16; y at tile_slot positions round16(4 * (35,824 + 1,119)) =
+    147,776; one plane of 6,721 words = 26,884: 228,548 bytes, inside
+    230,400.  The invalid plane adds round16(26,880 + 8) = 26,896:
+    255,444, outside one block, so the dense wire takes a cluster of two
+    blocks first.  Without y both fit one block a read."""
     L, W = 215040, 35824
     assert ops.num_windows(L, 100, 6) == W
+    assert geometry.slice_bytes(W) == 147776
     lean = geometry.greedy_plan(L, W, 14, 7, 93, 6, False, True)
-    assert lean.smem_bytes == 53776 + 96 + 16 + 143296 + 26884 == 224068 <= LIMIT
+    assert lean.smem_bytes == 53776 + 96 + 16 + 147776 + 26884 == 228548 <= LIMIT
     assert (lean.plane_words, lean.group_entries) == (6721, 1)
     assert geometry.greedy_plan(L, W, 14, 7, 93, 6, True, True) is None
-    assert 224068 + 26896 > LIMIT
+    assert 228548 + 26896 > LIMIT
     assert _route("greedy", L, 6, k=7) == ("fused", 0)
-    assert _route("greedy", L, 6, k=7, dense=True) == ("read", 0)
+    assert _route("greedy", L, 6, k=7, dense=True) == ("cluster", 17912)
+    assert _route("greedy", L, 6, k=7, dense=True, fused=False) == ("read", 0)
     read = geometry.greedy_plan(L, W, 14, 7, 93, 6, True, False)
     # five planes fit beside the rows; 14 entries go in three groups of five
     assert (LIMIT - (53776 + 26896 + 96 + 16)) // 26884 == 5
@@ -95,17 +136,21 @@ def test_dense_wire_leaves_the_fused_route_before_the_lean_one():
 def test_sum_body_k7_table_and_31_entries():
     """K = 31 entries at k = 7: the sum body's presence table is 4^7 words
     = 65,536 bytes.  At the default geometry it rides along: wire 5,008,
-    six group arrays of round16(4 * (3,312 + 15)) = 13,312, the table:
-    150,416 bytes, fused.  At 59,904 / slide 1 the table still leaves a
-    tile of 6,144 windows (>= 1,024), unfused; the fused entry is out (y
-    alone passes a block)."""
+    y at tile_slot positions round16(4 * (3,312 + 103)) = 13,664, six group
+    arrays of round16(4 * (3,312 + 15)) = 13,312, the table: 164,080
+    bytes, fused.  At 59,904 / slide 1 the table still leaves a tile of
+    6,144 windows (>= 1,024), unfused; one fused block is out (y alone
+    passes a block), a cluster of two blocks keeps the table."""
     plan = geometry.sum_plan(19968, 3312, 7, 93, 6, False, True)
-    assert plan == (5008 + 6 * 13312 + 65536, 3312, 1, 3312, True) and plan.smem_bytes == 150416
+    assert plan == (5008 + 13664 + 6 * 13312 + 65536, 3312, 1, 3312, True)
+    assert plan.smem_bytes == 164080
     assert _route("sum", 19968, 6, k=7, K=31) == ("fused", 0)
     long = geometry.sum_plan(59904, 59805, 7, 93, 1, False, False)
     assert long.use_lut and long.tile_windows == 6144 and long.smem_bytes <= LIMIT
     assert geometry.sum_plan(59904, 59805, 7, 93, 1, False, True) is None
-    assert _route("sum", 59904, 1, k=7, K=31) == ("read", 0)
+    assert _route("sum", 59904, 1, k=7, K=31) == ("cluster", 29903)
+    half = geometry.sum_plan(59904, 59805, 7, 93, 1, False, True, 29903)
+    assert half.use_lut and half.n_blocks == 2 and half.tile_windows == 1312
     # the greedy body holds 31 planes of 1,873 words in two groups there
     assert geometry.greedy_plan(59904, 59805, 31, 7, 93, 1, False, False).group_entries == 16
 
@@ -284,17 +329,19 @@ def test_grid_is_the_tpu_launchers_window_axis():
 
 def test_model_routes_before_it_launches(monkeypatch):
     """TorchScanModel asks the picker with the batch's own length and wire
-    and hands the wrappers the route: past the fused size the signal
-    wrapper with the picker's block_windows, then binseg_l2; rawcounts
-    likewise.  On the CPU nothing is logged (the plain versions have no
-    cap); the log line is for a card."""
+    and hands the wrappers the route: one fused block; past it the fused
+    entry on a cluster (the wrapper gets the cluster's windows a block)
+    where one block a read would fit; past that the signal wrapper with
+    the picker's block_windows, then binseg_l2; rawcounts likewise.  On the CPU nothing
+    is logged (the plain versions have no cap); the log line is for a
+    card."""
     calls, lines = [], []
 
     def spy(name):
         real = getattr(ops, name)
 
         def fn(*args, **kw):
-            calls.append((name, kw.get("block_windows")))
+            calls.append((name, kw.get("block_windows", kw.get("cluster_windows"))))
             return real(*args, **kw)
         monkeypatch.setattr(ops, name, fn)
 
@@ -305,9 +352,9 @@ def test_model_routes_before_it_launches(monkeypatch):
     model = TorchScanModel(telophrase_kmers("CCCTAAA", 5), device="cpu", window_size=100,
                            slide=6, log=lines.append)
     rng = np.random.default_rng(3)
-    for L, want in ((512, [("sum_boundary", None)]),
-                    (4096, [("sum_signal", 0), ("binseg_l2", None)]),
-                    (16384, [("sum_signal", 128), ("binseg_l2", None)])):
+    for L, want in ((512, [("sum_boundary", 0)]),
+                    (4096, [("sum_boundary", 334)]),
+                    (65536, [("sum_signal", 128), ("binseg_l2", None)])):
         codes = rng.integers(0, 4, (2, L)).astype(np.uint8)
         codes[:, :L // 2] = np.resize(np.array([1, 1, 1, 3, 0, 0, 0], np.uint8), L // 2)
         lens = np.full(2, L, np.int32)
@@ -326,19 +373,22 @@ def test_model_routes_before_it_launches(monkeypatch):
     # on a card the same routes are named once each
     monkeypatch.setattr(model, "device", torch.device("cuda", 0))
     for _ in range(2):
-        assert model.route("sum", 16384, True, fused=True) == ("sum", ("grid", 128))
-        assert model.route("sum", 4096, False, fused=True) == ("sum", ("read", 0))
+        assert model.route("sum", 65536, True, fused=True) == ("sum", ("grid", 128))
+        assert model.route("sum", 8192, False, fused=True) == ("sum", ("cluster", 450))
         assert model.route("sum", 512, True, fused=True) == ("sum", ("fused", 0))
     assert len(lines) == 2 and all(ln.startswith("INFO: scan length ") for ln in lines)
     assert "sum_signal then binseg_l2, on the window-block grid (128 windows a block)" in lines[0]
-    assert "past the fused kernel's shared memory" in lines[1] and "dense wire" in lines[1]
+    assert "is past one block's shared memory: sum_boundary, on a cluster of 3 blocks a read " \
+        "(450 windows a block)" in lines[1] and "dense wire" in lines[1]
 
 
 def test_engine_maxlengthtelo_60000_slide_1(tmp_path):
     """--maxlengthtelo 60000 --slide 1 on two reads of 61 and 66 kbp (one
     telomeric, one not; a third too short to pass): the torch engine's CSV
     and subset equal JaxEngine's and OracleEngine's.  On a card this
-    geometry leaves the fused route (the first test above)."""
+    geometry takes the fused entries on a cluster of two blocks a read
+    (the second test above); the CPU takes the plain versions whatever the
+    route."""
     rng = np.random.default_rng(60)
     data = tmp_path / "long.fastq.gz"
     alpha = np.frombuffer(b"ACGT", np.uint8)

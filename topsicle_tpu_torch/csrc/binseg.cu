@@ -2,8 +2,9 @@
 // device memory: y [B, W] int32, each row cut into tiles of consecutive
 // windows, one thread block a tile (csrc/binseg.cuh's tile functions).
 // The signal kernels on their own (sum_signal, greedy_signal) are followed
-// by it; the fused entries (sum_boundary, greedy_boundary) run
-// binseg.cuh's binseg_block behind their signal and do not come here.
+// by it; the fused entries (sum_boundary, greedy_boundary) run binseg.cuh's
+// slice_changepoint, the same slice functions, on y in their own shared
+// memory (one block a read, or a cluster of blocks) and do not come here.
 //
 // Replaces: topsicle_tpu/ops/changepoint.py::binseg_l2_device (:124), the
 // XLA program behind the TPU kernels (see binseg.cuh for what it

@@ -1,13 +1,16 @@
 // Exact single-changepoint search (binary segmentation, L2 cost): the
 // device functions of both callers.
 //
-//   binseg_block      one read by one thread block, y in shared or device
-//                     memory: fused behind the step-2 signal in
-//                     sum_boundary (sum_signal.cu) and greedy_boundary
-//                     (greedy_signal.cu)
-//   tile_sum_block,   a read cut into tiles of consecutive windows, one
-//   tile_best_block   block a tile: the stand-alone entry binseg_l2
-//                     (binseg.cu), y in device memory
+//   slice_scan,       a slice of a read's y already in shared memory, at
+//   slice_best        tile_slot positions: the block's scan and its best
+//                     candidate, the one block function every caller runs
+//   slice_changepoint a read's y in the slices of the C blocks of a
+//                     thread-block cluster (C = 1: one block): fused behind
+//                     the step-2 signal in sum_boundary (sum_signal.cu) and
+//                     greedy_boundary (greedy_signal.cu)
+//   tile_sum_block,   a read in device memory cut into tiles of consecutive
+//   tile_best_block   windows, one block a tile: the stand-alone entry
+//                     binseg_l2 (binseg.cu)
 //
 // Replaces: topsicle_tpu/ops/changepoint.py::binseg_l2_device (the XLA
 // program that follows the TPU kernels), and computes exactly what
@@ -25,33 +28,43 @@
 //
 // The compare g1 > g2 is A1^2*D2 > A2^2*D1 in 192-bit integers, exact over
 // the whole range the reference serves (|A| < 2^63, D < 2^62): no limb
-// split by W, nothing refused.
+// split by W, nothing refused.  beats_fast decides the clear cases in
+// double precision first and leaves the rest to that compare.
 //
-// binseg_block: each thread walks a contiguous chunk of y twice (chunk
-// sums for a block-wide int64 scan, then the candidates with their running
-// prefix), so S is never stored; per candidate one 192-bit cross compare
-// (about 12 64-bit multiplies), then 5 shuffle rounds and one round
-// through shared memory.  At W = 3,312 and jump 5 that is 662 candidates
-// a read.  In shared memory (the fused entries) the chunked walk costs
-// little; from device memory it is one uncoalesced load a lane, which is
-// why binseg_l2 does not use it.
+// A slice: cnt values of y at shared-memory words tile_slot(p) (a word of
+// padding every 32), so that a warp whose lanes read V = ceil(cnt /
+// threads) consecutive values each hits distinct banks.  slice_scan: each
+// thread sums its V values, one shuffle scan a warp and one shuffle scan
+// over the warp sums give each thread the sum before its first value (no
+// thread loops over earlier warps), and the thread that holds index n - 1
+// leaves the partial sum up to it.  slice_best: each thread walks its
+// candidates by stride (t from the first multiple of jump it holds, jump
+// at a time, the valid range clamped before the loop, so no test runs per
+// value), adding the values up to each t - 1, then shuffles and one round
+// through shared memory, beats_fast at every step.  Candidate t belongs to
+// the slice (and thread) that holds index t - 1, so slice edges at any
+// residue give the same answer.
 //
-// The tile functions: a block copies its tile of y into shared memory with
-// 16-byte loads, neighbouring threads on neighbouring addresses, and
-// then each thread takes V consecutive values from there (V = tile / 256;
-// a word of padding every 32 keeps V = 4, 8 or 16 free of bank
-// conflicts).  Several tiles a row need the sums of the tiles before
-// them: a first pass (tile_sum_block) writes each tile's int64 sum and the
-// partial sum up to index n - 1; the second (tile_best_block) forms its
-// offset and S_n from them, scans, picks its tile's best candidate and
-// leaves it in scratch, and the last block of the row to arrive (a ticket
-// taken after a __threadfence(); pass 1 zeroes the row's ticket, so no
-// count outlives its launch) reduces the row's bests.  Nothing waits on
-// another block.  A row of one tile skips the first pass and the
-// ticket.  Candidate t belongs to the tile that holds index t - 1.
+// Several slices a read need the sums of the slices before them:
+//   - binseg_l2's tiles: a first launch (tile_sum_block) writes each tile's
+//     sum and the partial sum up to index n - 1; the second
+//     (tile_best_block) stages its tile from device memory with 16-byte
+//     loads, forms its offset and S_n from pass 1, scans, picks its tile's
+//     best and leaves it in scratch, and the last block of the row to
+//     arrive (a ticket taken after a __threadfence(); pass 1 zeroes the
+//     row's ticket, so no count outlives its launch) reduces the row's
+//     bests.  A row of one tile skips the first pass and the ticket.
+//   - the fused entries' cluster: each block keeps its window block's
+//     slice of y in its own shared memory; after the scans a cluster.sync(),
+//     then each block reads the lower ranks' sums and S_n's partial through
+//     distributed shared memory (map_shared_rank), picks its best and
+//     leaves it in its shared memory; after a second cluster.sync() rank 0
+//     reduces the C bests in rank order and writes (t, has), and a last
+//     cluster.sync() keeps every block resident until rank 0 has read it.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -62,15 +75,6 @@ struct Cand {
   unsigned long long a;
   unsigned long long d;
   long long t;
-};
-
-// Shared memory the block function needs (declare one __shared__ instance).
-struct BinsegScratch {
-  long long warp_sum[32];
-  unsigned long long a[32];
-  unsigned long long d[32];
-  long long t[32];
-  long long s_n;
 };
 
 // (x*x)*m as three 64-bit words, least significant first.  x < 2^63 and
@@ -100,116 +104,6 @@ __device__ __forceinline__ bool beats(const Cand& p, const Cand& q) {
   return p.t < q.t;
 }
 
-// The changepoint of one read, by all kThreads threads of the block
-// (kThreads a multiple of 32, at most 1024).  `y` points at W int32
-// values in shared or device memory; every thread passes the same
-// arguments.  Thread 0 writes *t_out and *has_out.  Ends with every
-// thread past its last read of `y` and of `scratch` only after a later
-// __syncthreads(), so a caller that reuses either must synchronise first.
-template <int kThreads>
-__device__ void binseg_block(const int32_t* y, int W, long long n, int jump, int min_size,
-                             BinsegScratch& scratch, long long* t_out, uint8_t* has_out) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int kWarps = kThreads / 32;
-
-  const int n_cand = W / jump;
-  if (n_cand < 1) {
-    if (tid == 0) {
-      *t_out = 0;
-      *has_out = 0;
-    }
-    return;
-  }
-
-  // ---- pass 1: chunk sums, and the partial sum up to index n - 1 ----
-  const int chunk = (W + kThreads - 1) / kThreads;
-  const int lo = min(tid * chunk, W);
-  const int hi = min(lo + chunk, W);
-  long long idx_n = n - 1;
-  if (idx_n < 0) idx_n = 0;
-  if (idx_n > W - 1) idx_n = W - 1;
-  long long local = 0;
-  long long upto_n = 0;
-  for (int i = lo; i < hi; ++i) {
-    local += y[i];
-    if (i == idx_n) upto_n = local;
-  }
-
-  // ---- block-wide exclusive scan of the chunk sums (int64) ----
-  long long incl = local;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const long long up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  if (lane == 31) scratch.warp_sum[warp] = incl;
-  __syncthreads();
-  long long offset = incl - local;
-  for (int w = 0; w < warp; ++w) offset += scratch.warp_sum[w];
-  if (idx_n >= lo && idx_n < hi) scratch.s_n = offset + upto_n;
-  __syncthreads();
-  const long long s_n = scratch.s_n;
-
-  // ---- pass 2: the candidates of this chunk, with their running prefix ----
-  Cand best;
-  best.a = 0;
-  best.d = 1;
-  best.t = -1;
-  long long run = offset;
-  int next_t = (lo / jump + 1) * jump;      // the smallest multiple of jump above lo
-  for (int i = lo; i < hi; ++i) {
-    run += y[i];
-    if (i + 1 == next_t) {
-      const long long t = next_t;
-      next_t += jump;
-      if (t >= min_size && t <= n - min_size) {
-        const long long A = n * run - t * s_n;
-        Cand c;
-        c.a = static_cast<unsigned long long>(A < 0 ? -A : A);
-        c.d = static_cast<unsigned long long>(t * (n - t));
-        c.t = t;
-        if (beats(c, best)) best = c;
-      }
-    }
-  }
-
-  // ---- reduce: shuffles inside each warp, then one round through shared ----
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    Cand o;
-    o.a = __shfl_down_sync(0xffffffffu, best.a, off);
-    o.d = __shfl_down_sync(0xffffffffu, best.d, off);
-    o.t = __shfl_down_sync(0xffffffffu, best.t, off);
-    if (beats(o, best)) best = o;
-  }
-  if (lane == 0) {
-    scratch.a[warp] = best.a;
-    scratch.d[warp] = best.d;
-    scratch.t[warp] = best.t;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Cand c;
-    c.a = lane < kWarps ? scratch.a[lane] : 0;
-    c.d = lane < kWarps ? scratch.d[lane] : 1;
-    c.t = lane < kWarps ? scratch.t[lane] : -1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      Cand o;
-      o.a = __shfl_down_sync(0xffffffffu, c.a, off);
-      o.d = __shfl_down_sync(0xffffffffu, c.d, off);
-      o.t = __shfl_down_sync(0xffffffffu, c.t, off);
-      if (beats(o, c)) c = o;
-    }
-    if (lane == 0) {
-      *t_out = c.t < 0 ? static_cast<long long>(jump) : c.t;
-      *has_out = c.t < 0 ? 0 : 1;
-    }
-  }
-}
-
 // ---- binseg_l2's tiles ---------------------------------------------------------
 
 // The largest tile a launch takes (ops/geometry.py::BINSEG_MAX_TILE): its
@@ -226,7 +120,9 @@ __host__ __device__ __forceinline__ int tile_smem_bytes(int tw) {
   return 4 * (tile_slot(tw) + 1);
 }
 
-// Shared memory the tile functions need beside the tile (one instance).
+// Shared memory the slice and tile functions need beside the slice (one
+// instance).  total, upto and best are read by the other blocks of a
+// cluster; nothing else writes them.
 struct TileScratch {
   long long sum[32];
   long long part[32];
@@ -235,6 +131,9 @@ struct TileScratch {
   long long t[32];
   long long offset;
   long long s_n;
+  long long total;       // the slice's sum
+  long long upto;        // its sum through index n - 1, where it holds that index
+  Cand best;             // the slice's best candidate
 };
 
 // clamp(n - 1, 0, W - 1): the index whose prefix is S_n.
@@ -309,10 +208,12 @@ __device__ __forceinline__ bool beats_fast(const Cand& p, const Cand& q) {
   return beats(p, q);
 }
 
-// The better candidate of a warp's lanes, in lane 0.
+// The best candidate of a warp's first kLanes lanes (a power of two), in
+// lane 0.
+template <int kLanes = 32>
 __device__ __forceinline__ Cand warp_best(Cand c) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
     Cand o;
     o.a = __shfl_down_sync(0xffffffffu, c.a, off);
     o.d = __shfl_down_sync(0xffffffffu, c.d, off);
@@ -327,6 +228,117 @@ __device__ __forceinline__ Cand no_cand() {
   c.a = 0;
   c.d = 1;
   c.t = -1;
+  return c;
+}
+
+// A thread's share of a slice: values lo .. hi - 1, and the sum of the
+// slice's values before lo.
+struct SliceThread {
+  int lo, hi;
+  long long excl;
+};
+
+// The scan of a slice of cnt values of y at tile_slot positions of `ys`, by
+// the first kThreads threads of the block (kThreads a multiple of 32, at
+// most 1024; every thread of the block calls it, the others only meet its
+// barriers), V = ceil(cnt / kThreads) consecutive values a thread.  Leaves
+// sc.total = the slice's sum and, where the slice holds position `lim`
+// (0 <= lim < cnt), sc.upto = its sum through `lim`; ends synchronised.
+template <int kThreads>
+__device__ SliceThread slice_scan(const int32_t* ys, int cnt, long long lim, TileScratch& sc) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const bool in = tid < kThreads;           // the same for a whole warp
+  const int V = (cnt + kThreads - 1) / kThreads;
+  SliceThread s;
+  s.excl = 0;
+  s.lo = in ? min(tid * V, cnt) : cnt;
+  s.hi = min(s.lo + V, cnt);
+  long long local = 0, incl = 0;
+  if (in) {
+    for (int p = s.lo; p < s.hi; ++p) local += ys[tile_slot(p)];
+    incl = local;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long up = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += up;
+    }
+    if (lane == 31) sc.sum[warp] = incl;
+  }
+  __syncthreads();
+  if (in) {
+    // one pass over the warp sums: every warp scans them in its lanes and
+    // takes the sum before its own
+    long long ws = lane < kWarps ? sc.sum[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < kWarps; off <<= 1) {
+      const long long up = __shfl_up_sync(0xffffffffu, ws, off);
+      if (lane >= off) ws += up;
+    }
+    const long long prev = __shfl_sync(0xffffffffu, ws, (warp + 31) & 31);
+    const long long total = __shfl_sync(0xffffffffu, ws, kWarps - 1);
+    s.excl = (warp == 0 ? 0 : prev) + incl - local;
+    if (tid == 0) sc.total = total;
+    if (lim >= s.lo && lim < s.hi) {
+      long long u = s.excl;
+      for (int p = s.lo; p <= lim; ++p) u += ys[tile_slot(p)];
+      sc.upto = u;
+    }
+  }
+  __syncthreads();
+  return s;
+}
+
+// The best candidate of a slice scanned by slice_scan<kThreads>: window t0
+// is the slice's position 0, `run` the sum of the read's values before the
+// thread's first (the slice's offset plus s.excl), n the read's window
+// count and s_n its S_n.  A thread takes the candidates t whose t - 1 it
+// holds (t0 + lo < t <= t0 + hi), clamped to min_size <= t <= n - min_size
+// before the loop.  Every thread of the block calls it; returns the
+// block's best in thread 0 (the other threads' are not); sc.a, sc.d and
+// sc.t are read by warp 0 after the return, so a caller that reuses them
+// synchronises first.
+template <int kThreads>
+__device__ Cand slice_best(const int32_t* ys, const SliceThread& s, long long t0, long long run,
+                           long long s_n, long long n, int jump, int min_size,
+                           TileScratch& sc) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kThreads / 32;
+  if (threadIdx.x < kThreads) {
+    long long t = max(t0 + s.lo + 1, static_cast<long long>(min_size));
+    t = (t + jump - 1) / jump * jump;
+    const long long t_last = min(t0 + s.hi, n - min_size);
+    Cand best = no_cand();
+    int p = s.lo;
+    for (; t <= t_last; t += jump) {
+      for (const int e = static_cast<int>(t - t0); p < e; ++p) run += ys[tile_slot(p)];
+      const long long A = n * run - t * s_n;
+      Cand c;
+      c.a = static_cast<unsigned long long>(A < 0 ? -A : A);
+      c.d = static_cast<unsigned long long>(t * (n - t));
+      c.t = t;
+      if (beats_fast(c, best)) best = c;
+    }
+    best = warp_best(best);
+    if (lane == 0) {
+      sc.a[warp] = best.a;
+      sc.d[warp] = best.d;
+      sc.t[warp] = best.t;
+    }
+  }
+  __syncthreads();
+  Cand c = no_cand();
+  if (warp == 0) {
+    if (lane < kWarps) {
+      c.a = sc.a[lane];
+      c.d = sc.d[lane];
+      c.t = sc.t[lane];
+    }
+    c = warp_best<kWarps>(c);
+  }
   return c;
 }
 
@@ -403,7 +415,6 @@ __device__ void tile_best_block(const int32_t* __restrict__ y_row, int W, long l
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  constexpr int kWarps = kThreads / 32;
 
   if (W / jump < 1) {                       // no candidate in the row at all
     if (tid == 0) {
@@ -452,64 +463,11 @@ __device__ void tile_best_block(const int32_t* __restrict__ y_row, int W, long l
   if (ld.word_pos >= 0) tile_s[tile_slot(ld.word_pos)] = ld.word;
   __syncthreads();
 
-  // ---- each thread's V consecutive values: their sum, a block-wide scan ----
-  const int V = (tw + kThreads - 1) / kThreads;
-  const int lo = min(tid * V, cnt);
-  const int hi = min(lo + V, cnt);
-  long long local = 0, upto = 0;
-  for (int p = lo; p < hi; ++p) {
-    local += tile_s[tile_slot(p)];
-    if (t0 + p == idx_n) upto = local;
-  }
-  long long incl = local;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const long long up = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += up;
-  }
-  if (lane == 31) sc.sum[warp] = incl;
-  __syncthreads();
-  long long run = incl - local + (n_tiles > 1 ? sc.offset : 0);
-  for (int w = 0; w < warp; ++w) run += sc.sum[w];
-  if (n_tiles == 1 && idx_n >= t0 + lo && idx_n < t0 + hi) sc.s_n = run + upto;
-  __syncthreads();
-  const long long s_n = sc.s_n;
-
-  // ---- the candidates t whose t - 1 this thread holds ----
-  Cand best = no_cand();
-  long long next_t = (static_cast<long long>(t0 + lo) / jump + 1) * jump;
-  for (int p = lo; p < hi; ++p) {
-    run += tile_s[tile_slot(p)];
-    if (t0 + p + 1 == next_t) {
-      const long long t = next_t;
-      next_t += jump;
-      if (t >= min_size && t <= n - min_size) {
-        const long long A = n * run - t * s_n;
-        Cand c;
-        c.a = static_cast<unsigned long long>(A < 0 ? -A : A);
-        c.d = static_cast<unsigned long long>(t * (n - t));
-        c.t = t;
-        if (beats_fast(c, best)) best = c;
-      }
-    }
-  }
-
-  // ---- the tile's best: shuffles, one round through shared memory ----
-  best = warp_best(best);
-  if (lane == 0) {
-    sc.a[warp] = best.a;
-    sc.d[warp] = best.d;
-    sc.t[warp] = best.t;
-  }
-  __syncthreads();
+  // ---- the tile's scan and best: one tile a row finds S_n in its own scan ----
+  const SliceThread st = slice_scan<kThreads>(tile_s, cnt, idx_n - t0, sc);
+  Cand c = slice_best<kThreads>(tile_s, st, t0, (n_tiles > 1 ? sc.offset : 0) + st.excl,
+                                n_tiles > 1 ? sc.s_n : sc.upto, n, jump, min_size, sc);
   if (warp != 0) return;
-  Cand c = no_cand();
-  if (lane < kWarps) {
-    c.a = sc.a[lane];
-    c.d = sc.d[lane];
-    c.t = sc.t[lane];
-  }
-  c = warp_best(c);
 
   // ---- several tiles: the last block of the row reduces the tiles' bests ----
   if (n_tiles > 1) {
@@ -536,6 +494,101 @@ __device__ void tile_best_block(const int32_t* __restrict__ y_row, int W, long l
     c = warp_best(c);
   }
   if (lane == 0) {
+    *t_out = c.t < 0 ? static_cast<long long>(jump) : c.t;
+    *has_out = c.t < 0 ? 0 : 1;
+  }
+}
+
+// ---- the fused entries: a read's y in the slices of a cluster's blocks ----
+
+// The largest cluster a fused launch takes: the portable cluster size
+// (ops/geometry.py::MAX_CLUSTER).
+constexpr int kMaxCluster = 8;
+
+// Shared-memory bytes of a slice of w windows at tile_slot positions.
+__host__ __device__ __forceinline__ long long slice_smem_bytes(long long w) {
+  return (4 * (w + (w >> 5)) + 15) & ~15ll;
+}
+
+// The launch of a kernel on dim3(B, C) blocks of `threads` with `smem`
+// bytes of dynamic shared memory: with C > 1 (a fused entry's read on C
+// blocks) in clusters of (1, C, 1), a read's blocks one cluster.  `attr`
+// is the storage the configuration points at.
+inline cudaLaunchConfig_t launch_config(unsigned B, unsigned C, int threads, int smem,
+                                        bool cluster, cudaStream_t stream,
+                                        cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B, C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (cluster && C > 1) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = 1;
+    attr->val.clusterDim.y = C;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// The changepoint of read b, by the first kThreads threads of each of the
+// C = gridDim.y blocks of its cluster (a launch with cluster dimension (1,
+// C, 1); C = 1: one block, no cluster); every thread of every block calls
+// it.  Block r = blockIdx.y holds windows
+// r * WB .. r * WB + cnt - 1 of the read's W in `ys` (tile_slot positions,
+// written before a __syncthreads()); n is the read's window count.  Rank 0
+// writes *t_out and *has_out.  Every thread of every block of the cluster
+// calls it with the same W, WB, n, jump and min_size.
+template <int kThreads>
+__device__ void slice_changepoint(const int32_t* ys, int cnt, int W, int WB, long long n,
+                                  int jump, int min_size, TileScratch& sc, long long* t_out,
+                                  uint8_t* has_out) {
+  const int C = gridDim.y;
+  const int rank = blockIdx.y;
+  if (W / jump < 1) {                       // no candidate in the read at all
+    if (rank == 0 && threadIdx.x == 0) {
+      *t_out = 0;
+      *has_out = 0;
+    }
+    return;
+  }
+  const long long t0 = static_cast<long long>(rank) * WB;
+  const long long idx_n = s_n_index(n, W);
+  const SliceThread st = slice_scan<kThreads>(ys, cnt, idx_n - t0, sc);
+  Cand c;
+  if (C == 1) {
+    c = slice_best<kThreads>(ys, st, 0, st.excl, sc.upto, n, jump, min_size, sc);
+  } else {
+    namespace cg = cooperative_groups;
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                         // every block's total (and S_n's partial)
+    // the slice's offset and S_n, by every warp from the C blocks' sums
+    const int lane = threadIdx.x & 31;
+    const int rank_n = static_cast<int>(idx_n / WB);
+    long long off = 0, sn = 0;
+    if (lane < C) {
+      const TileScratch* o = cluster.map_shared_rank(&sc, lane);
+      const long long v = o->total;
+      off = lane < rank ? v : 0;
+      sn = lane < rank_n ? v : (lane == rank_n ? o->upto : 0);
+    }
+    off = warp_sum64(off);
+    sn = warp_sum64(sn);
+    c = slice_best<kThreads>(ys, st, t0, off + st.excl, sn, n, jump, min_size, sc);
+    if (threadIdx.x == 0) sc.best = c;
+    cluster.sync();                         // every block's best
+    if (rank == 0 && threadIdx.x == 0) {
+      c = no_cand();
+      for (int r = 0; r < C; ++r) {
+        const Cand o = *cluster.map_shared_rank(&sc.best, r);
+        if (beats_fast(o, c)) c = o;
+      }
+    }
+    cluster.sync();                         // no block leaves while rank 0 reads it
+  }
+  if (rank == 0 && threadIdx.x == 0) {
     *t_out = c.t < 0 ? static_cast<long long>(jump) : c.t;
     *has_out = c.t < 0 ? 0 : 1;
   }

@@ -18,8 +18,10 @@
 //   topsicle_greedy_signal    y[b, w] = sum_e max(count, 1)    int32 [B, W]
 //   topsicle_greedy_counts    count[b, e, w], no floor          int32 [B, K, W]
 //   topsicle_greedy_boundary  y stays in shared memory, csrc/binseg.cuh
-//                             finds the changepoint there, and only
-//                             (t int64, has uint8) leave the SM
+//                             finds the changepoint there (across a
+//                             thread-block cluster where a read takes
+//                             several blocks), and only (t int64, has
+//                             uint8) leave the chip
 // The second gives --rawcountpattern/--plot their per-entry counts.
 //
 // Input is the PLAIN wire sum_signal.cu reads (csrc/wire.cuh): 2 bits a
@@ -55,8 +57,8 @@
 //      sum over the entries stays in the lane's register: no atomics.
 //      Lanes of a warp hold neighbouring windows and the same entry, so
 //      they read neighbouring words and branch alike.
-//   C. the fused entry runs binseg.cuh's block function on y in shared
-//      memory.
+//   C. the fused entry runs binseg.cuh's slice_changepoint on y in shared
+//      memory, written at tile_slot positions in B.
 // A batch of 128 reads gives 128 of the card's 132 SMs one block each, so
 // a block is 1,024 threads: 32 warps hide the latency of the shared-memory
 // reads and of the ballots, eight of which are in flight at a time (on an
@@ -72,9 +74,12 @@
 // its match planes cover those positions only, and it writes its windows of
 // y [B, W], or its [K, windows] slab of the counts, to device memory.  The
 // chain restarts at every window, so nothing crosses a block's edge.  The
-// changepoint needs the whole of y: past the fused entry's limit the caller
-// runs csrc/binseg.cu on y instead (ops/geometry.py picks the route before
-// the launch).
+// fused entry takes the same blocks as one thread-block cluster a read (2
+// to 8 blocks): each keeps its windows' slice of y in its own shared
+// memory and binseg.cuh::slice_changepoint runs across the cluster
+// (distributed shared memory).  Past 8 blocks a read the caller runs
+// topsicle_greedy_signal on the grid and then csrc/binseg.cu
+// (ops/geometry.py picks the route before the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -85,6 +90,11 @@
 namespace {
 
 constexpr int kThreads = 1024;
+// The first kCpThreads threads of a block run the changepoint, the others
+// only meet its barriers: fewer warps in its shuffle reductions.  Swept at
+// B = 128 x 19,968 over 128 / 256 / 512 / 1,024 (PERF.md): 256 was the
+// fastest for both bodies.
+constexpr int kCpThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;                      // ballots in flight in step A
 constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
@@ -95,7 +105,8 @@ using topsicle::round16;
 
 // Dynamic shared-memory layout, in bytes: wire | invalid plane | table (and
 // kUnroll entries of -1 behind it, which match nothing) | self-overlap
-// flags | y (the fused entry) | Kg match planes of `pw` words.  `L` is the
+// flags | y (the fused entry: the block's W windows at binseg.cuh's
+// tile_slot positions) | Kg match planes of `pw` words.  `L` is the
 // bases a block stages and `W` the windows it serves (the read's, with one
 // block a read).  One function for the launcher and the kernel;
 // ops/geometry.py mirrors it.
@@ -110,7 +121,7 @@ __host__ __device__ inline Layout layout(int L, int W, int K, int Kg, int pw, bo
   s.tab = s.inv + (dense ? topsicle::invalid_row_bytes(L) : 0);
   s.flag = s.tab + round16(4 * (K + kUnroll));
   s.y = s.flag + round16(K);
-  s.planes = s.y + (boundary ? 4ll * ((W + 3) & ~3) : 0);
+  s.planes = s.y + (boundary ? topsicle::slice_smem_bytes(W) : 0);
   s.total = s.planes + 4ll * Kg * pw;
   return s;
 }
@@ -131,6 +142,8 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const bool dense = invalid != nullptr;
+  // the read's window count, loaded now so that its latency hides behind the signal
+  const long long n_read = kMode == kBoundary ? static_cast<long long>(n_windows[b]) : 0;
   const topsicle::WindowBlock blk = topsicle::window_block(blockIdx.y, WB, W, L, slide, span);
   const Layout lay = layout(span, WB, K, Kg, pw, dense, kMode == kBoundary);
   uint8_t* wire8 = smem;
@@ -227,17 +240,18 @@ greedy_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_
         int32_t* yw = out + static_cast<size_t>(b) * W + blk.w0 + w;
         *yw = e0 == 0 ? acc : *yw + acc;
       } else if (kMode == kBoundary) {
-        y[w] = e0 == 0 ? acc : y[w] + acc;
+        int32_t* yw = y + topsicle::tile_slot(w);
+        *yw = e0 == 0 ? acc : *yw + acc;
       }
     }
     __syncthreads();      // the next group's planes, or the changepoint's reads of y
   }
 
-  // ---- C. the changepoint of y, in the same block ----
+  // ---- C. the changepoint of y, in the same block or cluster ----
   if (kMode == kBoundary) {
-    __shared__ topsicle::BinsegScratch scratch;
-    topsicle::binseg_block<kThreads>(y, W, static_cast<long long>(n_windows[b]), jump,
-                                     min_size, scratch, t_out + b, has_out + b);
+    __shared__ topsicle::TileScratch scratch;
+    topsicle::slice_changepoint<kCpThreads>(y, blk.n_win, W, WB, n_read, jump, min_size,
+                                            scratch, t_out + b, has_out + b);
   }
 }
 
@@ -250,13 +264,14 @@ struct Plan {
 
 // The plan of a launch with `block_windows` windows a block (0, or W and
 // more: one block a read); false when the staged rows, y and one match plane
-// do not fit a block's shared memory.  The fused entry needs all of y in one
-// block.
+// do not fit a block's shared memory.  The fused entry's blocks of a read
+// are one cluster: at most kMaxCluster.
 inline bool plan(int L, int W, int K, int k, int J, int slide, bool dense, bool boundary,
                  int block_windows, Plan* p) {
   p->WB = block_windows > 0 && block_windows < W ? block_windows : W;
   p->n_blocks = (W + p->WB - 1) / p->WB;
-  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > 1)) return false;
+  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > topsicle::kMaxCluster))
+    return false;
   p->span = topsicle::block_span(L, W, p->WB, slide, J, k);
   // plane words: through the word after the last one a window's bits start
   // in (a block's first window starts up to kStageAlign - 1 positions into
@@ -292,8 +307,12 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   using topsicle::aligned16;
-  greedy_kernel<kMode><<<dim3(B, p.n_blocks), kThreads, p.smem_bytes,
-                         static_cast<cudaStream_t>(stream)>>>(
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      topsicle::launch_config(B, p.n_blocks, kThreads, p.smem_bytes, kMode == kBoundary,
+                              static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, greedy_kernel<kMode>,
       static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(invalid), invalid_stride,
@@ -301,7 +320,7 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
       static_cast<const int32_t*>(table), K, k, slide, J, L, W, p.WB, p.span, p.Kg, p.pw,
       static_cast<int32_t*>(out), static_cast<const int32_t*>(n_windows), jump, min_size,
       static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
@@ -336,19 +355,38 @@ extern "C" int topsicle_greedy_counts(const void* packed, int packed_stride,
                          nullptr, stream);
 }
 
-// The signal, followed in the block by the changepoint: `n_windows` [B]
+// The signal, followed in the launch by the changepoint: `n_windows` [B]
 // int32, `t_out` [B] int64, `has_out` [B] uint8 (0 or 1).  Needs
-// jump >= 1 and min_size >= 1.
+// jump >= 1 and min_size >= 1.  `block_windows`: 0 (or W and more) for one
+// block a read; fewer for a cluster of ceil(W / block_windows) <= 8 blocks
+// a read, each with its window block's slice of y.
 extern "C" int topsicle_greedy_boundary(const void* packed, int packed_stride,
                                         const void* lengths,
                                         const void* invalid, int invalid_stride,
                                         const void* table, int K, int k,
                                         int slide, int J, int L, int W, int B,
-                                        const void* n_windows, int jump, int min_size,
-                                        void* t_out, void* has_out, void* stream) {
+                                        int block_windows, const void* n_windows, int jump,
+                                        int min_size, void* t_out, void* has_out,
+                                        void* stream) {
   return launch<kBoundary>(packed, packed_stride, lengths, invalid, invalid_stride, table, K,
-                           k, slide, J, L, W, B, 0, nullptr, n_windows, jump, min_size,
-                           t_out, has_out, stream);
+                           k, slide, J, L, W, B, block_windows, nullptr, n_windows, jump,
+                           min_size, t_out, has_out, stream);
+}
+
+// As topsicle_sum_max_clusters, for the greedy body's fused entry.
+extern "C" int topsicle_greedy_max_clusters(int L, int W, int K, int k, int J, int slide,
+                                            int dense, int block_windows, int* out) {
+  Plan p;
+  if (!plan(L, W, K, k, J, slide, dense != 0, true, block_windows, &p)) return -2;
+  if (p.smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        greedy_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      topsicle::launch_config(1, p.n_blocks, kThreads, p.smem_bytes, true, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, greedy_kernel<kBoundary>, &cfg));
 }
 
 // What the launcher would do, without launching: out[0..4] = shared-memory

@@ -20,8 +20,10 @@
 //
 //   topsicle_sum_signal     y [B, W] int32 goes to device memory
 //   topsicle_sum_boundary   y stays in shared memory, csrc/binseg.cuh finds
-//                           the changepoint there, and only (t int64,
-//                           has uint8) leave the SM: 9 bytes a read
+//                           the changepoint there (across a thread-block
+//                           cluster where a read takes several blocks),
+//                           and only (t int64, has uint8) leave the chip:
+//                           9 bytes a read
 //
 // Input is the PLAIN wire the engine already packs (csrc/wire.cuh): 2 bits
 // a base, plus either per-read lengths (lean) or an invalid bit-plane
@@ -62,12 +64,12 @@
 //   3. one thread a window joins the pieces and writes y.
 //
 // Nothing is stored per position: six uint32 a group, 80 KB at L = 19,968,
-// slide 6, beside 5 KB of wire, 2.5 KB of plane and the table, with y
-// taking the place of one group array, so two blocks share an SM when
-// B > 132.  Where the windows of a read do not fit at once (slide 1 at
-// that length: 19,949 windows), the block walks them in tiles of as many
-// as fit, each tile with its own groups, and the fused entry keeps y [W]
-// beside the tile's arrays.
+// slide 6, beside 5 KB of wire, 2.5 KB of plane and the table, and in the
+// fused entry y (13.7 KB at binseg.cuh's tile_slot positions), 100 KB in
+// all, so two blocks share an SM when B > 132.  Where the windows of a
+// read do not fit at once (slide 1 at that length: 19,949 windows), the
+// block walks them in tiles of as many as fit, each tile with its own
+// groups, and the fused entry keeps y [W] beside the tile's arrays.
 //
 // Long reads: the window-block grid.  A read whose staged rows (and, fused,
 // y [W]) pass a block's 227 KB cannot be one block.  topsicle_sum_signal
@@ -77,9 +79,13 @@
 // the bytes its windows read (csrc/wire.cuh::window_block), runs the three
 // steps on them with its groups cut from its own first window, and writes
 // its windows of y [B, W] to device memory, so shared memory is constant in
-// the read's length.  The changepoint needs the whole of y: past the fused
-// entry's limit the caller runs csrc/binseg.cu on y instead
-// (ops/geometry.py picks the route before the launch).
+// the read's length.  The fused entry takes the same blocks as one
+// thread-block cluster a read (2 to 8 blocks, cudaLaunchKernelEx with a
+// cluster dimension): each block keeps its windows' slice of y in its own
+// shared memory and binseg.cuh::slice_changepoint runs across the cluster
+// (distributed shared memory), so y never reaches device memory.  Past 8
+// blocks a read the caller runs topsicle_sum_signal on the grid and then
+// csrc/binseg.cu (ops/geometry.py picks the route before the launch).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,6 +96,11 @@
 namespace {
 
 constexpr int kThreads = 512;
+// The first kCpThreads threads of a block run the changepoint, the others
+// only meet its barriers: fewer warps in its shuffle reductions.  Swept at
+// B = 128 x 19,968 over 128 / 256 / 512 / 1,024 (PERF.md): 256 was the
+// fastest for both bodies.
+constexpr int kCpThreads = 256;
 constexpr int kMaxEntries = 31;
 constexpr int kLutMaxK = 7;                     // 4^7 words = 64 KB
 constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
@@ -97,11 +108,12 @@ constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the s
 using topsicle::round16;
 
 // Dynamic shared-memory layout, in bytes: wire | invalid plane | y (the
-// fused entry, and only when the windows go in several tiles: with one
-// tile y takes the place of a group array) | six arrays of one tile's
-// tile_w + Q groups | table.  `L` is the bases a block stages and `W` the
-// windows it serves (the read's, with one block a read).  One function for
-// the launcher and the kernel; ops/geometry.py mirrors it.
+// fused entry: the block's W windows at binseg.cuh's tile_slot positions,
+// which the changepoint reads without bank conflicts; no group array can
+// hold it, since step 3 reads them all while it writes y) | six arrays of
+// one tile's tile_w + Q groups | table.  `L` is the bases a block stages
+// and `W` the windows it serves (the read's, with one block a read).  One
+// function for the launcher and the kernel; ops/geometry.py mirrors it.
 constexpr int kGroupArrays = 6;
 
 struct Layout {
@@ -115,7 +127,7 @@ __host__ __device__ inline Layout layout(int L, int W, int k, int Q, bool dense,
   // a position reads the 32-bit word holding its first bit and the next one
   s.inv = s.wire + topsicle::wire_row_bytes(L);
   s.y = s.inv + (dense ? topsicle::invalid_row_bytes(L) : 0);
-  s.grp = s.y + (boundary && tile_w < W ? round16(4 * W) : 0);
+  s.grp = s.y + (boundary ? static_cast<int>(topsicle::slice_smem_bytes(W)) : 0);
   s.lut = s.grp + kGroupArrays * round16(4 * (tile_w + Q));
   s.total = s.lut + (use_lut ? 4 << (2 * k) : 0);
   return s;
@@ -161,10 +173,12 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
            long long* __restrict__ t_out, uint8_t* __restrict__ has_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int32_t tab[kMaxEntries + 1];
-  __shared__ topsicle::BinsegScratch scratch;
+  __shared__ topsicle::TileScratch scratch;
 
   const int b = blockIdx.x;
   const bool dense = invalid != nullptr;
+  // the read's window count, loaded now so that its latency hides behind the signal
+  const long long n_read = kBoundary ? static_cast<long long>(n_windows[b]) : 0;
   const int Q = J / slide;            // whole groups in a window
   const int R = J - Q * slide;        // and positions of the next group
   const topsicle::WindowBlock blk = topsicle::window_block(blockIdx.y, WB, W, L, slide, span);
@@ -211,10 +225,7 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
   r.tab = tab;
   r.K = K;
 
-  // y of the fused entry: its own array, or with one tile the suffix
-  // sums' array, which each thread overwrites at the index it alone reads
-  int32_t* y = tile_w < WB ? reinterpret_cast<int32_t*>(smem + lay.y)
-                           : reinterpret_cast<int32_t*>(g_sum);
+  int32_t* y = reinterpret_cast<int32_t*>(smem + lay.y);    // the fused entry's slice
 
   for (int w0 = 0; w0 < blk.n_win; w0 += tile_w) {
     // Positions, groups and windows are counted from the tile's first:
@@ -295,7 +306,7 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
       }
       const int32_t v = static_cast<int32_t>(sum) + K - __popc(o);
       if (kBoundary) {
-        y[w0 + w] = v;
+        y[topsicle::tile_slot(w0 + w)] = v;
       } else {
         y_out[static_cast<size_t>(b) * W + blk.w0 + w0 + w] = v;
       }
@@ -303,8 +314,8 @@ sum_kernel(const uint8_t* __restrict__ packed, int packed_stride, int packed_vec
     __syncthreads();      // the next tile, or the changepoint, reuses the arrays
   }
   if (kBoundary) {
-    topsicle::binseg_block<kThreads>(y, W, static_cast<long long>(n_windows[b]), jump,
-                                     min_size, scratch, t_out + b, has_out + b);
+    topsicle::slice_changepoint<kCpThreads>(y, blk.n_win, W, WB, n_read, jump, min_size,
+                                            scratch, t_out + b, has_out + b);
   }
 }
 
@@ -317,12 +328,13 @@ struct Plan {
 
 // The plan of a launch with `block_windows` windows a block (0, or W and
 // more: one block a read); false when a block does not fit shared memory.
-// The fused entry needs all of y in one block.
+// The fused entry's blocks of a read are one cluster: at most kMaxCluster.
 inline bool plan(int L, int W, int k, int J, int slide, bool dense, bool boundary,
                  int block_windows, Plan* p) {
   p->WB = block_windows > 0 && block_windows < W ? block_windows : W;
   p->n_blocks = (W + p->WB - 1) / p->WB;
-  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > 1)) return false;
+  if (p->n_blocks > topsicle::kMaxGridY || (boundary && p->n_blocks > topsicle::kMaxCluster))
+    return false;
   p->span = topsicle::block_span(L, W, p->WB, slide, J, k);
   // the table where it leaves room for all windows or a tile of 1,024
   const int Q = J / slide;
@@ -354,8 +366,12 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   using topsicle::aligned16;
-  sum_kernel<kBoundary><<<dim3(B, p.n_blocks), kThreads, p.smem_bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      topsicle::launch_config(B, p.n_blocks, kThreads, p.smem_bytes, kBoundary,
+                              static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, sum_kernel<kBoundary>,
       static_cast<const uint8_t*>(packed), packed_stride, aligned16(packed, packed_stride),
       static_cast<const int32_t*>(lengths),
       static_cast<const uint8_t*>(invalid), invalid_stride,
@@ -363,7 +379,7 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
       static_cast<const int32_t*>(table), K, k, slide, J, L, W, p.WB, p.span, p.use_lut,
       p.tile_w, static_cast<int32_t*>(y_out), static_cast<const int32_t*>(n_windows), jump,
       min_size, static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
@@ -383,19 +399,40 @@ extern "C" int topsicle_sum_signal(const void* packed, int packed_stride,
                        stream);
 }
 
-// The same, followed in the block by the changepoint: `n_windows` [B]
+// The same, followed in the launch by the changepoint: `n_windows` [B]
 // int32, `t_out` [B] int64, `has_out` [B] uint8 (0 or 1).  Needs
-// jump >= 1 and min_size >= 1.
+// jump >= 1 and min_size >= 1.  `block_windows`: 0 (or W and more) for one
+// block a read; fewer for a cluster of ceil(W / block_windows) <= 8 blocks
+// a read, each with its window block's slice of y.
 extern "C" int topsicle_sum_boundary(const void* packed, int packed_stride,
                                      const void* lengths,
                                      const void* invalid, int invalid_stride,
                                      const void* table, int K, int k,
-                                     int slide, int J, int L, int W, int B,
+                                     int slide, int J, int L, int W, int B, int block_windows,
                                      const void* n_windows, int jump, int min_size,
                                      void* t_out, void* has_out, void* stream) {
   return launch<true>(packed, packed_stride, lengths, invalid, invalid_stride, table, K, k,
-                      slide, J, L, W, B, 0, nullptr, n_windows, jump, min_size, t_out, has_out,
-                      stream);
+                      slide, J, L, W, B, block_windows, nullptr, n_windows, jump, min_size,
+                      t_out, has_out, stream);
+}
+
+// The clusters of a fused launch with this geometry that the card can keep
+// resident at once (cudaOccupancyMaxActiveClusters; one block a read: the
+// blocks), in *out.  Returns 0, -2 where the launch would, or the CUDA
+// error.
+extern "C" int topsicle_sum_max_clusters(int L, int W, int k, int J, int slide, int dense,
+                                         int block_windows, int* out) {
+  Plan p;
+  if (!plan(L, W, k, J, slide, dense != 0, true, block_windows, &p)) return -2;
+  if (p.smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sum_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      topsicle::launch_config(1, p.n_blocks, kThreads, p.smem_bytes, true, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(out, sum_kernel<true>, &cfg));
 }
 
 // What the launcher would do, without launching: out[0..4] = shared-memory
@@ -414,6 +451,7 @@ extern "C" int topsicle_sum_plan(int L, int W, int k, int J, int slide, int dens
 }
 
 extern "C" const char* topsicle_cuda_error_string(int code) {
-  if (code == -2) return "the block does not fit shared memory";
+  if (code == -2)
+    return "the launch does not fit: a block past shared memory, or a fused read past 8 blocks";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -8,12 +8,14 @@ every table with k <= 15:
   step 2: [B, L] tail codes -> (t, has): the window signal and its exact
           changepoint, in one fused kernel: ops.sum_boundary for
           aperiodic tables with K <= 31, ops.greedy_boundary for the
-          rest.  A kernel asked for by name runs unfused: its signal
-          (ops.sum_signal or ops.greedy_signal), then the changepoint
-          kernel (ops.binseg_l2); so does a scan too long for the fused
-          block (ops.geometry.pick_route, asked before every launch), its
-          signal kernel on the window-block grid where a read's rows pass
-          a block's shared memory.  No scan length is refused
+          rest, one block a read or, for a read past one block, a
+          thread-block cluster of its blocks.  A kernel asked for by name
+          runs unfused: its signal (ops.sum_signal or ops.greedy_signal),
+          then the changepoint kernel (ops.binseg_l2); so does a scan too
+          long for a cluster (ops.geometry.pick_route, asked before every
+          launch), its signal kernel on the window-block grid where a
+          read's rows pass a block's shared memory.  No scan length is
+          refused
   rawcounts: [B, L] tail codes -> [B, K, W] per-entry greedy counts, no
           floor (ops.greedy_counts, by the same picker), for
           --rawcountpattern and --plot
@@ -99,15 +101,16 @@ class TorchScanModel:
     takes the greedy kernel.  "sum" outside the envelope warns and takes
     the greedy kernel, as the JAX model does.  Auto runs its kernel fused
     with the changepoint (one launch: ops.sum_boundary or
-    ops.greedy_boundary) where a read's rows and y fit one block; a
-    kernel asked for by name, and auto past that size, run the two
-    kernels one after the other (ops.sum_signal or ops.greedy_signal,
-    then ops.binseg_l2), the signal kernel one block a read or, for a
-    longer read still, on the window-block grid.  ops.geometry.pick_route
-    decides from the batch's length before each launch; `log` (a
-    callable, the engine's run log) gets one line the first time a
-    geometry leaves the fused route.  The results are bit-identical on
-    every route."""
+    ops.greedy_boundary) where a read's rows and y fit one block, or a
+    cluster of 2 to 8 blocks a read where one block a read would fit
+    without y; a kernel asked for by name, and auto
+    past that size, run the two kernels one after the other
+    (ops.sum_signal or ops.greedy_signal, then ops.binseg_l2), the signal
+    kernel one block a read or, for a longer read still, on the
+    window-block grid.  ops.geometry.pick_route decides from the batch's
+    length before each launch; `log` (a callable, the engine's run log)
+    gets one line the first time a geometry leaves one fused block.  The
+    results are bit-identical on every route."""
 
     def __init__(self, kmers: Sequence[str], *, device: str | torch.device = "cuda",
                  window_size: int = 100, slide: int = 7, jump: int = 5,
@@ -193,9 +196,10 @@ class TorchScanModel:
     def step2_boundary_launch_packed(self, packed, n_windows: np.ndarray
                                      ) -> Tuple[HostResult, HostResult]:
         """(t, has) handles for a pack_scan_batch result.  The signal
-        kernel has the exact changepoint fused behind it (one launch)
-        unless it was asked for by name; then the changepoint is
-        ops.binseg_l2's launch.  The window counts ride one pinned copy,
+        kernel has the exact changepoint fused behind it (one launch: one
+        block a read, or a cluster of a long read's blocks) unless it was
+        asked for by name or the read passes a cluster; then the
+        changepoint is ops.binseg_l2's launch.  The window counts ride one pinned copy,
         as the wire does."""
         a, b, L, lean = self._wire_to_device(packed)
         n = self._to_device(np.asarray(n_windows, dtype=np.int32))
@@ -205,7 +209,7 @@ class TorchScanModel:
         if route.fused:
             boundary = ops.sum_boundary if kernel == "sum" else ops.greedy_boundary
             t, has = boundary(a, b, self.table, n, jump=self.jump, min_size=self.min_size,
-                              **geometry)
+                              cluster_windows=route.block_windows, **geometry)
         else:
             signal = ops.sum_signal if kernel == "sum" else ops.greedy_signal
             y = signal(a, b, self.table, block_windows=route.block_windows, **geometry)
@@ -218,8 +222,9 @@ class TorchScanModel:
         A window so long that the sum body cannot hold one (its groups
         pass a block's shared memory) takes the greedy body, which is
         exact for every table.  On a card, the first batch of a geometry
-        that asked for the fused route and leaves it, that takes the grid
-        or that changes body is named in the run log."""
+        that asked for the fused route and leaves one block a read for a
+        cluster or for two launches, that takes the grid or that changes
+        body is named in the run log."""
         geometry = dict(L=L, W=self.num_windows(L), K=self.K, k=self.k,
                         window_size=self.window_size, slide=self.slide, dense=not lean,
                         fused=fused)
@@ -229,7 +234,7 @@ class TorchScanModel:
             entry = "greedy"
         if route is None:
             route = ops.geometry.pick_route(entry, **geometry)
-        left = (fused and not route.fused) or route.kind == "grid" or entry != asked
+        left = route.kind != "fused" and (fused or route.kind == "grid") or entry != asked
         key = (asked, L, lean, fused)
         if left and self.log is not None and self.device.type == "cuda" \
                 and key not in self._routes_logged:
@@ -239,11 +244,15 @@ class TorchScanModel:
                        "counts": "greedy_counts"}[entry]
             if route.fused:
                 kernels = f"{entry}_boundary"
-            how = (f"on the window-block grid ({route.block_windows} windows a block)"
-                   if route.kind == "grid" else "one block a read")
+            W = self.num_windows(L)
+            how = {"grid": f"on the window-block grid ({route.block_windows} windows a block)",
+                   "cluster": f"on a cluster of {route.blocks(W)} blocks a read "
+                              f"({route.block_windows} windows a block)"}.get(route.kind,
+                                                                              "one block a read")
             why = ("takes " if not fused else
                    "is past the fused kernel's shared memory: " if not route.fused else
-                   "has a window past the sum kernel's shared memory: ")
+                   "has a window past the sum kernel's shared memory: " if entry != asked else
+                   "is past one block's shared memory: ")
             self.log(f"INFO: scan length {L} ({'lean' if lean else 'dense'} wire, window "
                      f"{self.window_size}, slide {self.slide}, k={self.k}) {why}{kernels}, {how}")
         return entry, route

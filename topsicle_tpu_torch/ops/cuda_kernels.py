@@ -4,7 +4,8 @@
                  launch: the window signal (replaces the TPU kernel
                  topsicle_tpu/ops/pallas_kernels.py::_sum_signal_kernel)
                  with the exact changepoint (csrc/binseg.cuh) behind it in
-                 the same block, so only (t, has) leave the SM
+                 the same block, or across the thread-block cluster of a
+                 long read's blocks, so only (t, has) leave the chip
   sum_signal     csrc/sum_signal.cu     the same body with y [B, W] written
                  to device memory instead
   binseg_l2      csrc/binseg.cu         the exact changepoint alone on a y
@@ -15,7 +16,7 @@
   greedy_boundary  csrc/greedy_signal.cu  step 2 for every other table in
                  one launch: the greedy window signal (replaces
                  pallas_kernels.py::_signal_kernel) from match planes, with
-                 the changepoint behind it in the same block
+                 the changepoint behind it in the same block or cluster
   greedy_signal  csrc/greedy_signal.cu  the same body with y [B, W] written
                  to device memory instead
   greedy_counts  csrc/greedy_signal.cu  the same body without the floor:
@@ -33,8 +34,10 @@ sum_signal, greedy_signal and greedy_counts run one block a read where the
 read's rows fit a block's shared memory, and on the window-block grid
 (blocks of `block_windows` windows, each staging only the bases its
 windows read) where they do not: ops.geometry picks, before the launch, so
-that no length is refused.  The fused entries need a read's whole y in one
-block; past that the model runs a signal entry and binseg_l2.
+that no length is refused.  The fused entries keep a read's whole y on the
+chip: in one block, or in the slices of a cluster of up to 8 blocks (a
+window block each, launched with a cluster dimension); past that the model
+runs a signal entry and binseg_l2.
 
 Every csrc/*.cu is compiled with nvcc (one process per source, started
 together, then one link) into a single shared library with a plain C
@@ -89,13 +92,15 @@ STEP1_PLAIN_CALLS = {"cpu": 0, "cuda": 0}
 # pointer (or the stream), i an int.  ctypes passes an undeclared pointer as
 # a 32-bit int and cuts it, so every entry is declared from this table.
 _WIRE = "pippipiiiiiii"       # packed, stride, lengths, invalid, stride, table, K, k .. W, B
-ENTRY_ARGS = {"sum_boundary": _WIRE + "piippp", "sum_signal": _WIRE + "ipp",
-              "binseg_l2": "piipiiiipppp", "greedy_boundary": _WIRE + "piippp",
+ENTRY_ARGS = {"sum_boundary": _WIRE + "ipiippp", "sum_signal": _WIRE + "ipp",
+              "binseg_l2": "piipiiiipppp", "greedy_boundary": _WIRE + "ipiippp",
               "greedy_signal": _WIRE + "ipp", "greedy_counts": _WIRE + "ipp",
               "step1_counts": "pippipiiiipp"}
 # topsicle_<name>_plan: what a launcher would do, without a launch (ints, then
-# an int[5] for the answer)
+# an int[5] for the answer); topsicle_<name>_max_clusters: how many of a fused
+# launch's clusters the card keeps resident (ints, then an int for it)
 PLAN_ARGS = {"sum": 8, "greedy": 9}
+MAX_CLUSTERS_ARGS = {"sum": 7, "greedy": 8}
 
 
 def reset_launch_counts() -> None:
@@ -190,10 +195,11 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, f"topsicle_{name}")
                 fn.argtypes = [ctypes.c_void_p if a == "p" else ctypes.c_int for a in args]
                 fn.restype = ctypes.c_int
-            for name, n_ints in PLAN_ARGS.items():
-                fn = getattr(lib, f"topsicle_{name}_plan")
-                fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
-                fn.restype = ctypes.c_int
+            for suffix, table in (("plan", PLAN_ARGS), ("max_clusters", MAX_CLUSTERS_ARGS)):
+                for name, n_ints in table.items():
+                    fn = getattr(lib, f"topsicle_{name}_{suffix}")
+                    fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.POINTER(ctypes.c_int)]
+                    fn.restype = ctypes.c_int
             lib.topsicle_cuda_error_string.argtypes = [ctypes.c_int]
             lib.topsicle_cuda_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -286,6 +292,41 @@ def launcher_plan(entry: str, *, L: int, W: int, K: int, k: int, J: int, slide: 
     if entry == "sum":
         return geometry.SumPlan(out[0], out[1], out[2], out[3], bool(out[4]))
     return geometry.GreedyPlan(*out)
+
+
+def max_active_clusters(entry: str, *, L: int, W: int, K: int, k: int, J: int, slide: int,
+                        dense: bool, block_windows: int = 0) -> int:
+    """How many clusters of a fused launch of the sum or greedy body, with
+    `block_windows` windows a block, the card keeps resident at once
+    (cudaOccupancyMaxActiveClusters); one block a read counts blocks.
+    Raises where the launcher would refuse the geometry or CUDA fails."""
+    lib = load_library()
+    out = ctypes.c_int(0)
+    tail = (J, slide, int(dense), block_windows, ctypes.byref(out))
+    if entry == "sum":
+        rc = lib.topsicle_sum_max_clusters(L, W, k, *tail)
+    else:
+        rc = lib.topsicle_greedy_max_clusters(L, W, K, k, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{entry} max_clusters: {lib.topsicle_cuda_error_string(rc).decode()}")
+    return out.value
+
+
+def _cluster_windows(entry: str, cluster_windows: int, *, L: int, W: int, K: int, k: int,
+                     J: int, slide: int, lean: bool) -> int:
+    """The fused launch's windows a block: the caller's (n < W: a cluster
+    of ceil(W / n) blocks; W and more: one block a read), or, for 0, the
+    picker's (the cluster route's, else 0: one block a read, which the
+    launcher refuses where it does not fit)."""
+    if (W - 1) * slide + J + k >= 2 ** 31:
+        raise ValueError(f"{W} windows at slide {slide} pass the kernels' 32-bit positions")
+    if cluster_windows < 0:
+        raise ValueError(f"cluster_windows must be >= 0, got {cluster_windows}")
+    if cluster_windows > 0:
+        return int(cluster_windows)
+    route = geometry.find_route(entry, L=L, W=W, K=K, k=k, window_size=J + k, slide=slide,
+                                dense=not lean)
+    return route.block_windows if route is not None and route.kind == "cluster" else 0
 
 
 def _block_windows(entry: str, block_windows, *, L: int, W: int, K: int, k: int, J: int,
@@ -405,13 +446,18 @@ def sum_boundary_plain(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch
 
 def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                  n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
-                 L: int, lean: bool, jump: int = 5, min_size: int = 2):
+                 L: int, lean: bool, jump: int = 5, min_size: int = 2,
+                 cluster_windows: int = 0):
     """Step 2 for aperiodic tables in one launch: the window signal of
-    sum_signal and, in the same block, its exact changepoint, so only
-    (t [B] int64, has [B] bool) reach device memory.  Wire and table as
-    for sum_signal; n_windows [B] int32 valid-window counts.
-    Bit-identical to sum_boundary_plain.  Only for a geometry whose
-    ops.geometry.pick_route is fused: past it, sum_signal then binseg_l2."""
+    sum_signal and, in the same block (or across the thread-block cluster
+    of a read's blocks), its exact changepoint, so only (t [B] int64, has
+    [B] bool) reach device memory.  Wire and table as for sum_signal;
+    n_windows [B] int32 valid-window counts.  Bit-identical to
+    sum_boundary_plain.  Only for a geometry whose ops.geometry.pick_route
+    is fused or a cluster: past it, sum_signal then binseg_l2.
+    `cluster_windows` forces the windows a block (n < W: a cluster of
+    ceil(W / n) <= 8 blocks a read; W and more: one block), for checks and
+    timings only; 0 takes the plan."""
     _check_sum_table("sum_boundary", table, k)
     if codes_wire.device.type == "cpu":
         return sum_boundary_plain(codes_wire, aux, table, n_windows, k=k,
@@ -427,11 +473,13 @@ def sum_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tenso
         # no k-mer fits a window: the signal is all zeros
         return binseg_l2(torch.zeros((B, W), dtype=torch.int32, device=dev), n_windows,
                          jump, min_size)
+    wb = _cluster_windows("sum", cluster_windows, L=L, W=W, K=int(table.shape[0]), k=k, J=J,
+                          slide=slide, lean=lean)
     t = torch.empty(B, dtype=torch.int64, device=dev)
     has = torch.empty(B, dtype=torch.bool, device=dev)
     _launch("sum_boundary", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
+            wb, n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
     return t, has
 
 
@@ -531,14 +579,16 @@ def greedy_signal(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tens
 
 def greedy_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Tensor,
                     n_windows: torch.Tensor, *, k: int, window_size: int, slide: int,
-                    L: int, lean: bool, jump: int = 5, min_size: int = 2):
+                    L: int, lean: bool, jump: int = 5, min_size: int = 2,
+                    cluster_windows: int = 0):
     """Step 2 for every table in one launch: the window signal of
-    greedy_signal and, in the same block, its exact changepoint, so only
-    (t [B] int64, has [B] bool) reach device memory.  Wire and table as
-    for greedy_signal; n_windows [B] int32 valid-window counts.
+    greedy_signal and, in the same block (or across the thread-block
+    cluster of a read's blocks), its exact changepoint, so only (t [B]
+    int64, has [B] bool) reach device memory.  Wire and table as for
+    greedy_signal; n_windows [B] int32 valid-window counts.
     Bit-identical to greedy_boundary_plain.  Only for a geometry whose
-    ops.geometry.pick_route is fused: past it, greedy_signal then
-    binseg_l2."""
+    ops.geometry.pick_route is fused or a cluster: past it, greedy_signal
+    then binseg_l2.  `cluster_windows` as for sum_boundary."""
     dev = _check_greedy("greedy_boundary", codes_wire, aux, table, k, L, lean)
     B, K = codes_wire.shape[0], int(table.shape[0])
     _check_boundary_args("greedy_boundary", n_windows, B, jump, min_size)
@@ -553,11 +603,13 @@ def greedy_boundary(codes_wire: torch.Tensor, aux: torch.Tensor, table: torch.Te
         # no k-mer fits a window: the signal is K in every window
         return binseg_l2(torch.full((B, W), K, dtype=torch.int32, device=dev), n_windows,
                          jump, min_size)
+    wb = _cluster_windows("greedy", cluster_windows, L=L, W=W, K=K, k=k, J=J, slide=slide,
+                          lean=lean)
     t = torch.empty(B, dtype=torch.int64, device=dev)
     has = torch.empty(B, dtype=torch.bool, device=dev)
     _launch("greedy_boundary", dev,
             *_wire_args(codes_wire, aux, table, k=k, slide=slide, J=J, W=W, L=L, lean=lean),
-            n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
+            wb, n_windows.data_ptr(), jump, min_size, t.data_ptr(), has.data_ptr())
     return t, has
 
 

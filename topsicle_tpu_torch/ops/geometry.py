@@ -6,11 +6,19 @@ and the grid of ::_signal_pallas_call (`grid=(B // R, nWB)`, window blocks
 with a halo), without the phase-planar wire, which only the TPU needed.
 
 A block of the CUDA signal kernels keeps what it reads in shared memory,
-at most 227 KB.  Three routes follow, in the order the picker tries them:
+at most 227 KB.  Four routes follow, in the order the picker tries them:
 
   fused   one block a read, the changepoint in the same block
           (sum_boundary, greedy_boundary): the read's rows, its tables
-          and, where the windows go in tiles, y [W] must fit a block
+          and y [W] (at csrc/binseg.cuh's tile_slot positions) must fit a
+          block
+  cluster the same entries on a thread-block cluster of C = 2 .. 8 blocks
+          a read (the smallest C whose blocks fit), each block a window
+          block of `block_windows` = ceil(W / C) windows with its bases,
+          its tables and its slice of y; the changepoint runs across the
+          cluster through distributed shared memory, so y still never
+          leaves the chip.  Taken only in place of `read`: a read that
+          needs the grid gets more blocks from it than 8
   read    one block a read writes y [B, W] (or counts [B, K, W]) to
           device memory (sum_signal, greedy_signal, greedy_counts), and
           binseg_l2 follows: the rows and tables must fit
@@ -35,6 +43,7 @@ SMEM_LIMIT = 232448 - 2048      # a block's maximum, less the kernels' static pa
 STEP1_SMEM_LIMIT = 232448 - 1024
 STAGE_ALIGN = 128               # bases: 32 bytes of wire, 16 of invalid plane
 MAX_GRID_Y = 65535              # blocks a read: a launch's second grid axis
+MAX_CLUSTER = 8                 # blocks a read on the cluster route: the portable cluster size
 LUT_MAX_K = 7                   # the sum body's 4^k-word presence table: 64 KB at k = 7
 GROUP_ARRAYS = 6                # the sum body's arrays of a word a group
 GREEDY_UNROLL = 8               # entries of -1 behind the greedy body's table
@@ -62,6 +71,12 @@ def wire_row_bytes(L: int) -> int:
 
 def invalid_row_bytes(L: int) -> int:
     return round16((L + 7) // 8 + 8)
+
+
+def slice_bytes(W: int) -> int:
+    """Shared-memory bytes of a fused entry's y over W windows at
+    csrc/binseg.cuh's tile_slot positions (a word of padding every 32)."""
+    return round16(4 * (W + (W >> 5)))
 
 
 # ---- the window-block grid ------------------------------------------------------
@@ -117,7 +132,7 @@ class SumPlan(NamedTuple):
 def _sum_layout_total(L: int, W: int, k: int, Q: int, dense: bool, use_lut: bool,
                       tile_w: int, boundary: bool) -> int:
     total = wire_row_bytes(L) + (invalid_row_bytes(L) if dense else 0)
-    total += round16(4 * W) if boundary and tile_w < W else 0
+    total += slice_bytes(W) if boundary else 0
     total += GROUP_ARRAYS * round16(4 * (tile_w + Q))
     return total + ((4 << (2 * k)) if use_lut else 0)
 
@@ -134,10 +149,11 @@ def _sum_tile_windows(L: int, W: int, k: int, Q: int, dense: bool, use_lut: bool
 def sum_plan(L: int, W: int, k: int, J: int, slide: int, dense: bool, boundary: bool,
              block_windows: int = 0) -> Optional[SumPlan]:
     """csrc/sum_signal.cu::plan: what a launch with `block_windows` windows a
-    block (0: one block a read) is made of, or None where it does not fit."""
+    block (0: one block a read) is made of, or None where it does not fit.
+    A fused launch (`boundary`) takes at most MAX_CLUSTER blocks a read."""
     WB = block_windows if 0 < block_windows < W else W
     n_blocks = -(-W // WB)
-    if n_blocks > MAX_GRID_Y or (boundary and n_blocks > 1):
+    if n_blocks > MAX_GRID_Y or (boundary and n_blocks > MAX_CLUSTER):
         return None
     span = block_span(L, W, WB, J + k, slide)
     Q = J // slide
@@ -165,14 +181,14 @@ def greedy_plan(L: int, W: int, K: int, k: int, J: int, slide: int, dense: bool,
     """csrc/greedy_signal.cu::plan, as sum_plan."""
     WB = block_windows if 0 < block_windows < W else W
     n_blocks = -(-W // WB)
-    if n_blocks > MAX_GRID_Y or (boundary and n_blocks > 1):
+    if n_blocks > MAX_GRID_Y or (boundary and n_blocks > MAX_CLUSTER):
         return None
     span = block_span(L, W, WB, J + k, slide)
     first_max = STAGE_ALIGN - 1 if n_blocks > 1 else 0
     pw = (((first_max + (WB - 1) * slide) >> 5) + ((J + 31) >> 5) + 1) | 1
     fixed = wire_row_bytes(span) + (invalid_row_bytes(span) if dense else 0)
     fixed += round16(4 * (K + GREEDY_UNROLL)) + round16(K)
-    fixed += 4 * ((WB + 3) & ~3) if boundary else 0
+    fixed += slice_bytes(WB) if boundary else 0
     if fixed + 4 * pw > SMEM_LIMIT:
         return None
     fit = (SMEM_LIMIT - fixed) // (4 * pw)
@@ -192,14 +208,21 @@ def step1_fits(L: int, k: int, dense: bool) -> bool:
 # ---- the picker ----------------------------------------------------------------------
 
 class Route(NamedTuple):
-    """`kind`: "fused", "read" or "grid"; `block_windows`: the windows a
-    block serves on the grid, 0 on the other routes."""
+    """`kind`: "fused", "cluster", "read" or "grid"; `block_windows`: the
+    windows a block serves on the cluster and the grid, 0 on the other
+    routes."""
     kind: str
     block_windows: int = 0
 
     @property
     def fused(self) -> bool:
-        return self.kind == "fused"
+        """The changepoint runs in the signal's launch (one block a read or
+        a cluster)."""
+        return self.kind in ("fused", "cluster")
+
+    def blocks(self, W: int) -> int:
+        """Blocks a read of W windows takes: C on the cluster route."""
+        return -(-W // self.block_windows) if self.block_windows else 1
 
 
 def _plan(entry: str, L: int, W: int, K: int, k: int, J: int, slide: int, dense: bool,
@@ -213,13 +236,15 @@ def find_route(entry: str, *, L: int, W: int, K: int, k: int, window_size: int, 
                dense: bool, fused: bool = True) -> Optional[Route]:
     """The route of a launch of `entry` ("sum", "greedy", or "counts" for
     greedy_counts) on reads of L bases and W windows: fused where the
-    caller allows it and the block fits; else one block a read where that
-    fits; else the window-block grid, at BLOCK_WINDOWS windows a block or
-    the largest halving of it that fits.  None only where one window of
-    this body alone passes a block's shared memory (the sum body keeps 24
-    bytes a group of `slide` positions of a window, the greedy body a bit
-    a position and entry: a window of some 9,000 bases at slide 1 passes
-    the first, one of 460,000 the second)."""
+    caller allows it and one block fits; else, where one block a read fits
+    without y, fused on a cluster of the fewest blocks (2 .. MAX_CLUSTER,
+    ceil(W / C) windows each) that fit, or one block a read; else the
+    window-block grid, at BLOCK_WINDOWS windows a block or the largest
+    halving of it that fits.
+    None only where one window of this body alone passes a block's shared
+    memory (the sum body keeps 24 bytes a group of `slide` positions of a
+    window, the greedy body a bit a position and entry: a window of some
+    9,000 bases at slide 1 passes the first, one of 460,000 the second)."""
     if entry not in ("sum", "greedy", "counts"):
         raise ValueError(f"unknown entry {entry!r}")
     J = window_size - k
@@ -227,6 +252,13 @@ def find_route(entry: str, *, L: int, W: int, K: int, k: int, window_size: int, 
     if fused and entry != "counts" and _plan(*args, True) is not None:
         return Route("fused")
     if _plan(*args, False) is not None:
+        if fused and entry != "counts":
+            # a cluster in place of one block a read, never of the grid: on a
+            # read that needs the grid its many blocks beat 8 (PERF.md)
+            for C in range(2, MAX_CLUSTER + 1):
+                WB = -(-W // C)
+                if WB < W and _plan(*args, True, WB) is not None:
+                    return Route("cluster", WB)
         return Route("read")
     WB = BLOCK_WINDOWS
     while WB >= 1:
