@@ -69,6 +69,10 @@ line is printed):
      L = 19968, the packed API and rawcounts, each shard launching its
      kernel (the counts double); and a handle that syncs on its own
      card's stream
+     and global mode's launches at one process (GlobalScanModel at k = 5
+     and 7, B = 128 x L = 19968 and step 1): each made behind ~36 ms of
+     matrix products on the stream must return while its result's event
+     is pending, and drain to the model's own result bit for bit
   4. end to end: a seeded 4,096-read gzipped FASTQ (~58 Mbp) through the
      port's CLI on the card, five paths, each with the launch counts set
      to 0 just before it and read just after:
@@ -96,6 +100,13 @@ line is printed):
      --coordinator and in --shardMode global (each byte-identical to the
      one-process run, no .parts left); and a --pattern CCCTAAACC
      --telophrase 9 16 sweep (k = 16 on the host) equal to the oracle's
+     then the compile cache: --precompile with TOPSICLE_COMPILE_CACHE set
+     to a fresh directory builds the kernels' library and the C++ reader
+     there (nothing new in topsicle_tpu_torch/_build/), a fresh CLI
+     process on the e2e file with that cache builds nothing and writes
+     the oracle's bytes, and a fresh process's start is split (import
+     torch, CUDA context, the port's import, the kernel library and the
+     C++ reader with the cache warm and cold, a first batch)
   5. times, from the card: each kernel vs its plain version (CUDA events,
      medians: the time of one launch paced by the host, as every run of
      this script has read it, and beside it the time with the launches
@@ -126,6 +137,10 @@ wrappers take cluster_windows), step 2 of a batch of 8 reads at
 step-1 count and binseg_l2 (at y [128, 3312] and [4, 174747]) of the
 checkout at DIR, through DIR's own wrappers, by phase 5's two methods and
 prints a line each, so that two commits' kernels can be read in one call.
+`python3 chip_smoke.py --global-of DIR` runs only phase 4's two-process
+--shardMode global run, through DIR's CLI, five times (DIR's kernel
+library built first), and prints the walls, so that two commits' global
+runs can be read in turns in one call.
 
 The last three lines are the kernels' JSON record, the card's
 `nvidia-smi --query-gpu=name,power.limit` line, and the result line
@@ -173,6 +188,8 @@ INT32_OPS_PER_S = 67e12 / 4
 DELAY_N = 4096      # a float32 product of this order keeps the card busy ~3 ms
 BINSEG_SWEEP = (1024, 2048, 4096)      # binseg_l2's tiles timed: V = 4, 8, 16
 CLUSTER_SWEEP = (1, 2, 4)      # blocks a read of the fused entries timed at the default shape
+NOWAIT_PRODUCTS = 12   # products of DELAY_N queued before a global launch: ~36 ms of the card
+GLOBAL_RUNS = 5        # two-process --shardMode global runs of a checkout, --global-of
 
 
 def _cuda_ms(torch, fn, reps):
@@ -525,6 +542,59 @@ def _sharded_phase(torch, dev, batches, ends):
     return lines
 
 
+def _nowait_phase(torch, codes, lens, ends, ends_len):
+    """Phase 3's global launches at one process: GlobalScanModel over a
+    TorchScanModel on the card at k = 5 (sum_boundary) and k = 7
+    (greedy_boundary), B = 128 x L = 19968 and [128, 2, 1000] ends.
+    Each launch is made behind NOWAIT_PRODUCTS matrix products on the
+    stream and must return while its result's event is still pending (a
+    launch that waits for the card fails); drained, the result must equal
+    the model's own bit for bit.  Returns the lines to print."""
+    import numpy as np
+
+    from topsicle_tpu_torch.io import batch as batching
+    from topsicle_tpu_torch.kmers import telophrase_kmers
+    from topsicle_tpu_torch.models import TorchScanModel
+    from topsicle_tpu_torch.parallel.multihost import GlobalScanModel
+
+    m = torch.ones(DELAY_N, DELAY_N, device="cuda")
+    busy = torch.mm(m, m)           # the first product also sets the library up
+    nw = batching.window_counts_for_lengths(lens, 100, 6)
+    lines = []
+    for k in (5, 7):
+        model = TorchScanModel(telophrase_kmers("CCCTAAA", k), device="cuda", window_size=100,
+                               slide=6)
+        g = GlobalScanModel(model)
+        assert g.n_proc == 1
+        launches = (("step2_boundary_global_launch", model.step2_boundary(codes, nw, lens),
+                     lambda: g.step2_boundary_global_launch(codes, nw, lens)),
+                    ("step1_counts_global_launch", (model.step1_counts(ends, ends_len),),
+                     lambda: (g.step1_counts_global_launch(ends, ends_len),)))
+        for what, want, launch in launches:
+            torch.cuda.synchronize()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(NOWAIT_PRODUCTS):
+                torch.mm(m, m, out=busy)
+            e.record()
+            t0 = time.perf_counter()
+            handles = launch()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            pending = [not h.local.ready() for h in handles]
+            got = [np.asarray(h) for h in handles]
+            busy_ms = s.elapsed_time(e)
+            assert all(pending), (f"k={k} {what} returned after its result was on the host "
+                                  f"({host_ms:.2f} ms host, behind {busy_ms:.1f} ms of "
+                                  f"products): the launch waited for the card")
+            assert all(np.array_equal(x, w) for x, w in zip(got, want)), \
+                f"k={k} {what}: drained result differs from the model's own"
+            lines.append(f"[global] k={k} {what} at one process, behind {NOWAIT_PRODUCTS} "
+                         f"products ({busy_ms:.1f} ms of the card): returned in {host_ms:.3f} "
+                         f"ms host time with its result's event pending; drained, "
+                         f"bit-identical to the model's own")
+    return lines
+
+
 def _free_port() -> int:
     import socket
 
@@ -546,17 +616,20 @@ _CHILD = ("import json, sys\n"
           "sys.exit(rc)\n")
 
 
-def _run_processes(repo, argvs, device_line, card=True):
-    """Start one CLI process per argv, all at once; each must exit 0
-    within MP_TIMEOUT s, name its device in its log and, on a `card`,
-    launch kernels.
-    Kills any process left.  Returns (wall seconds, [launch counts])."""
+def _run_processes(repo, argvs, device_line, card=True, env=None, elapsed=None):
+    """Start one CLI process per argv, all at once (with `env` added to
+    the environment); each must exit 0 within MP_TIMEOUT s, name its
+    device in its log and, on a `card`, launch kernels.  Kills any
+    process left.  Returns (wall seconds, [launch counts]); appends each
+    process's own `Elapsed time(s)` (from its CLI's start, after its
+    imports) to the list `elapsed`, when given."""
     import json
 
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, "-c", _CHILD.format(repo=repo, argv=a)],
                               cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for a in argvs]
+                              text=True, env=None if env is None else {**os.environ, **env})
+             for a in argvs]
     try:
         outs = [p.communicate(timeout=MP_TIMEOUT) for p in procs]
     finally:
@@ -579,7 +652,120 @@ def _run_processes(repo, argvs, device_line, card=True):
             assert plain and plain[0]["cuda"] == 0, \
                 f"process {i} ran a plain torch version on the card: {what}{plain}"
         launches.append(got[0])
+        if elapsed is not None:
+            elapsed += [float(x.split()[2]) for x in out.splitlines()
+                        if x.startswith("Elapsed time(s): ")]
     return wall, launches
+
+
+# a fresh process's start on the card, each step timed by the process
+# itself: import torch, the CUDA context, the port's import, the kernels'
+# library (loaded, or built where the compile cache is cold), the C++
+# reader (the same), and a first batch of both steps at k = 5
+_START = ("import time\n"
+          "t = [time.perf_counter()]\n"
+          "import json, sys\n"
+          "import torch\n"
+          "t.append(time.perf_counter())\n"
+          "torch.zeros(1, device='cuda')\n"
+          "torch.cuda.synchronize()\n"
+          "t.append(time.perf_counter())\n"
+          "sys.path.insert(0, {repo!r})\n"
+          "import numpy as np\n"
+          "from topsicle_tpu_torch.io import batch as batching\n"
+          "from topsicle_tpu_torch.kmers import telophrase_kmers\n"
+          "from topsicle_tpu_torch.models import TorchScanModel\n"
+          "from topsicle_tpu_torch.native import loader\n"
+          "from topsicle_tpu_torch.ops import cuda_kernels\n"
+          "t.append(time.perf_counter())\n"
+          "built = not cuda_kernels.library_path().exists()\n"
+          "cuda_kernels.load_library()\n"
+          "t.append(time.perf_counter())\n"
+          "reader = loader.status()\n"
+          "t.append(time.perf_counter())\n"
+          "rng = np.random.default_rng(5)\n"
+          "codes = rng.integers(0, 4, (128, 19968)).astype(np.uint8)\n"
+          "lens = np.full(128, 19968, np.int32)\n"
+          "model = TorchScanModel(telophrase_kmers('CCCTAAA', 5), device='cuda',\n"
+          "                       window_size=100, slide=6)\n"
+          "np.asarray(model.step1_counts_launch(codes[:, :2000].reshape(128, 2, 1000),\n"
+          "                                     np.full(128, 1000, np.int32)))\n"
+          "th = model.step2_boundary_launch(codes, batching.window_counts_for_lengths(\n"
+          "    lens, 100, 6), lens)\n"
+          "[np.asarray(x) for x in th]\n"
+          "t.append(time.perf_counter())\n"
+          "names = ['import torch', 'CUDA context', 'import the port', 'kernel library',\n"
+          "         'C++ reader', 'first batch (B=128, step 1 and step 2, k=5)']\n"
+          "print(json.dumps(dict(built=built, reader=reader,\n"
+          "                      s={{n: b - a for n, a, b in zip(names, t, t[1:])}})))\n")
+
+
+def _cache_phase(repo, work, fq, oracle, device_line, smi):
+    """Phase 4's compile cache: `--precompile` with TOPSICLE_COMPILE_CACHE
+    set to a fresh directory builds the kernels' library and the C++
+    reader there and nothing in the package's _build/; a fresh CLI
+    process on the e2e file with the same cache builds nothing, launches
+    its kernels and writes the oracle's bytes; then a fresh process's
+    start, split, with that cache warm and with an empty one.  Returns
+    the lines to print."""
+    import json
+
+    pkg_build = os.path.join(repo, "topsicle_tpu_torch", "_build")
+
+    def listing():
+        return sorted(os.listdir(pkg_build)) if os.path.isdir(pkg_build) else []
+
+    before = listing()
+    cache = os.path.join(work, "compile_cache")
+    env = {"TOPSICLE_COMPILE_CACHE": cache}
+    common = ["--inputDir", fq, "--pattern", "CCCTAAA", "--slide", "6", "--device", "cuda"]
+    out = os.path.join(work, "precompile")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "topsicle_tpu_torch.cli", "--precompile",
+                        "--outputDir", out, *common], cwd=repo, capture_output=True,
+                       text=True, timeout=MP_TIMEOUT, env={**os.environ, **env})
+    wall = time.perf_counter() - t0
+    assert r.returncode == 0, f"--precompile exited {r.returncode}:\n{r.stderr[-3000:]}"
+    log = open(os.path.join(out, "topsicle_run.log")).read()
+    libs = sorted(os.listdir(cache))
+    kernels = [n for n in libs if n.startswith("libtopsicle_kernels_") and n.endswith(".so")]
+    reader = os.path.join(cache, "_tsio.so")
+    assert len(kernels) == 1 and os.path.exists(reader), f"compile cache holds {libs}"
+    so = os.path.join(cache, kernels[0])
+    assert f"kernels: built {so}" in log, "--precompile: no 'kernels: built' line"
+    assert f"precompile: reader native C++ (native/tsio.cc), built {reader}" in log, \
+        "--precompile: the C++ reader was not built into the cache"
+    assert listing() == before, "--precompile wrote into the package"
+    lines = [f"[cache] --precompile with TOPSICLE_COMPILE_CACHE={cache}: built {kernels[0]} "
+             f"and _tsio.so there, nothing new in topsicle_tpu_torch/_build/; wall "
+             f"{wall:.2f} s from process start"]
+    out = os.path.join(work, "port5cache")
+    wall, launches = _run_processes(repo, [common + ["--outputDir", out, "--batchSize", "128"]],
+                                    device_line, env=env)
+    log = open(os.path.join(out, "topsicle_run.log")).read()
+    said = [ln.split("] ", 1)[-1] for ln in log.splitlines() if "kernels: " in ln
+            or "reader: " in ln]
+    assert said == [f"reader: native C++ (native/tsio.cc), loaded {reader}",
+                    f"kernels: loaded {so}"], f"warm cache: the run log says {said}"
+    assert _outputs(out) == _outputs(oracle), "warm cache: outputs differ from the oracle's"
+    lines.append(f"[cache] a fresh CLI process on the e2e file with that cache: {said}; "
+                 f"outputs byte-identical to the oracle; launches {launches[0]}; wall "
+                 f"{wall:.2f} s from process start ({smi})")
+    for label, where in (("warm", cache), ("cold", os.path.join(work, "cold_cache"))):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", _START.format(repo=repo)], cwd=repo,
+                           capture_output=True, text=True, timeout=MP_TIMEOUT,
+                           env={**os.environ, "TOPSICLE_COMPILE_CACHE": where})
+        wall = time.perf_counter() - t0
+        assert r.returncode == 0, f"start split ({label}):\n{r.stderr[-3000:]}"
+        got = json.loads(r.stdout.strip().splitlines()[-1])
+        assert got["built"] == (label == "cold") and \
+            got["reader"].startswith("built" if label == "cold" else "loaded"), got
+        rest = wall - sum(got["s"].values())
+        lines.append(f"[start] a fresh process, compile cache {label}: " + ", ".join(
+            f"{n} {v:.3f} s" for n, v in got["s"].items()) + f"; the interpreter's start "
+            f"and exit {rest:.3f} s; wall {wall:.3f} s (host clock; {smi})")
+    return lines
 
 
 def _outputs(out):
@@ -653,6 +839,66 @@ def _k16_phase(work, k16, device, device_line):
             f"wall {wall:.2f} s")
 
 
+def _global_of(torch, root):
+    """`python3 chip_smoke.py --global-of DIR`: only phase 4's two-process
+    --shardMode global run on the four seeded files, through the CLI of
+    the checkout at DIR, GLOBAL_RUNS times on the card after building or
+    loading DIR's kernel library in a process of its own; prints the walls
+    from process start and each process's own elapsed time (from its
+    CLI's start, after its imports), so that two commits' global runs
+    can be read in turns in one call.  Every run must write the same
+    bytes (their hash is printed).  No result line."""
+    import hashlib
+
+    import numpy as np
+
+    root = os.path.abspath(root)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_smoke_run", "global_of")
+    files = os.path.join(work, "files")
+    if not os.path.exists(os.path.join(work, "written")):     # the turns share the inputs
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(files)
+        rng = np.random.default_rng(8)
+        for i, n in enumerate(FILE_READS):
+            _write_fastq(os.path.join(files, f"part{i}.fastq.gz"), rng, n)
+        open(os.path.join(work, "written"), "w").close()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    device_line = f"device: cuda:0 ({torch.cuda.get_device_name(0)})"
+    # DIR's kernel library first, so that no timed run builds it
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+                    "from topsicle_tpu_torch.ops import cuda_kernels; "
+                    "cuda_kernels.load_library()", root], check=True, timeout=MP_TIMEOUT)
+    ready = time.perf_counter() - t0
+    common = ["--inputDir", files, "--pattern", "CCCTAAA", "--slide", "6", "--batchSize",
+              "128", "--device", "cuda", "--shardMode", "global", "--processCount", "2"]
+    walls, elapsed, digests = [], [], set()
+    for run in range(GLOBAL_RUNS):
+        out = os.path.join(work, f"run{run}")
+        shutil.rmtree(out, ignore_errors=True)
+        port = f"127.0.0.1:{_free_port()}"
+        mine = []
+        wall, _ = _run_processes(root, [common + ["--outputDir", out, "--coordinator", port,
+                                                  "--processId", str(pid)] for pid in (0, 1)],
+                                 device_line, elapsed=mine)
+        walls.append(wall)
+        elapsed.append(mine)
+        got = _outputs(out)
+        assert len(got) == 1 + len(FILE_READS), sorted(got)
+        digests.add(hashlib.sha256(b"".join(got[n] for n in sorted(got))).hexdigest()[:16])
+        shutil.rmtree(out)
+    assert len(digests) == 1, f"{root}: the runs wrote different bytes {digests}"
+    print(f"[global] {root}: two processes, --shardMode global, {sum(FILE_READS)} reads in "
+          f"{len(FILE_READS)} files, {GLOBAL_RUNS} runs: walls from process start "
+          f"{[round(w, 3) for w in walls]} s (median {statistics.median(walls):.3f}); each "
+          f"process's own elapsed {elapsed} s (median "
+          f"{statistics.median(sum(elapsed, [])):.2f}); outputs {digests.pop()} in every run; "
+          f"DIR's kernel library built or loaded first in {ready:.2f} s ({smi})")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -662,6 +908,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--times-of"]:
         return _times_of(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--global-of"]:
+        return _global_of(torch, sys.argv[2])
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
     import numpy as np
@@ -1108,6 +1356,17 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
         print(line)
     del batches
 
+    # ---- 3. global launches that do not wait for the card -----------------
+    rng_g = np.random.default_rng(12)      # apart from rng: later phases' inputs stay
+    codes_g = _reads(rng_g, 128, L)
+    lens_g = rng_g.integers(L // 2, L + 1, 128).astype(np.int32)
+    codes_g[np.arange(L)[None, :] >= lens_g[:, None]] = 0xFF
+    for line in _nowait_phase(torch, codes_g, lens_g,
+                              _reads(rng_g, 128, 2000).reshape(128, 2, 1000),
+                              np.full(128, 1000, np.int32)):
+        print(line)
+    del codes_g
+
     # ---- 4. end to end ----------------------------------------------------
     for k, p in oracles.items():
         rc = p.wait(timeout=900)
@@ -1204,6 +1463,8 @@ def _phases(torch, name, smi, repo, work, fq, bp, oracles, mp_inputs, long_input
               f"{'the oracle' if label == '1 process' else 'the one-process run'}, no .parts "
               f"left; kernel launches per process {launches}; wall {wall:.2f} s")
     print(_k16_phase(work, k16, "cuda", device_line))
+    for line in _cache_phase(repo, work, fq, os.path.join(work, "oracle5"), device_line, smi):
+        print(line)
 
     # ---- 5. times ---------------------------------------------------------
     B = 128

@@ -11,9 +11,11 @@ reference's framework-free modules, under the same relative names:
     topsicle_tpu_torch.kmers     k-mer tables and base codes
     topsicle_tpu_torch.io        readers, batch assembly, writers, block cache
     topsicle_tpu_torch.native    the C++ reader (native/tsio.cc, built at
-                                 first use into _build/)
+                                 first use into the compile cache)
     topsicle_tpu_torch.oracle    the pure-Python reference semantics
-    topsicle_tpu_torch.utils     manifest, prefetch, stage timers
+    topsicle_tpu_torch.utils     manifest, prefetch, stage timers, the
+                                 compile cache (TOPSICLE_COMPILE_CACHE,
+                                 else _build/)
     topsicle_tpu_torch.plots     matplotlib figures (optional import)
     topsicle_tpu_torch.device    explicit device choice (cuda | cpu)
     topsicle_tpu_torch.ops       plain torch ops + the hand-written CUDA

@@ -23,6 +23,12 @@ or two processes in global mode, each on its own card:
         --inputDir reads/ --outputDir out --pattern CCCTAAA --device cuda \\
         --shardMode global --coordinator 127.0.0.1:29500 \\
         --processId $i --processCount 2 & done; wait
+
+On a read-only install, point the compile cache at a writable volume and
+build the kernels and the C++ reader there once; later jobs load both:
+
+    TOPSICLE_COMPILE_CACHE=/scratch/topsicle topsicle-torch --precompile \
+        --inputDir x --outputDir warm --pattern CCCTAAA --device cuda
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from topsicle_tpu_torch.config import TopsicleConfig
 from topsicle_tpu_torch.io.writer import RunLog
 from topsicle_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
 from topsicle_tpu_torch.pipeline import make_engine
+from topsicle_tpu_torch.utils import compile_cache
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -93,10 +100,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--traceDir", metavar="FOLDER", type=str, default=None,
                    help="Write a torch.profiler trace of the run to this directory")
     p.add_argument("--precompile", action="store_true",
-                   help="Build and load the CUDA kernels' library and check "
-                        "every telophrase's table, then exit without reading "
-                        "input (later jobs on this checkout find the library "
-                        "built)")
+                   help="Build and load the CUDA kernels' library (on a card) "
+                        "and the C++ reader into the compile cache "
+                        "(TOPSICLE_COMPILE_CACHE, else the package's _build/) "
+                        "and check every telophrase's table, then exit without "
+                        "reading input (run once per machine/cache volume so "
+                        "later jobs start without building)")
     p.add_argument("--scanLengthMode", choices=["static", "bucket"], default="static",
                    help="Step-2 padding: 'static' = one scan length for the whole "
                         "run; 'bucket' = pad per batch (less compute on "
@@ -186,7 +195,8 @@ def main(argv=None) -> int:
                 log("--precompile only applies to the device engine")
                 return 2
             n = engine.precompile()
-            log(f"built {n} kernel libraries; ready")
+            log(f"precompile: {n} kernel libraries in {compile_cache.default_cache_dir()}; "
+                "ready")
         else:
             engine.run()
     except FileExistsError as e:

@@ -67,6 +67,10 @@ class HostResult:
         else:
             self._host = t
 
+    def ready(self) -> bool:
+        """Whether the result has reached the host, without waiting."""
+        return self._event is None or self._event.query()
+
     def __array__(self, dtype=None, copy=None):
         if self._event is not None:
             self._event.synchronize()

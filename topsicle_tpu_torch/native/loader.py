@@ -1,7 +1,11 @@
 """Build-on-demand ctypes loader for the package's own native/tsio.cc.
 
-The library is built into topsicle_tpu_torch/_build/ (never beside the
-source), so an installed package is whole and a checkout stays clean."""
+The library is built into the compile cache (utils/compile_cache.py:
+TOPSICLE_COMPILE_CACHE, else topsicle_tpu_torch/_build/), never beside
+the source, so an installed package is whole and a checkout stays clean.
+When it cannot be built (no g++ or zlib, a cache that cannot be
+written), callers fall back to the Python reader and `status()` says
+why."""
 
 from __future__ import annotations
 
@@ -13,21 +17,26 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from topsicle_tpu_torch.utils import compile_cache
+
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
+_STATUS = ""        # "built <path>", "loaded <path>" or "not built: <why>"
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "native", "tsio.cc")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_BUILD_DIR = str(compile_cache.default_cache_dir())
 _SO = os.path.join(_BUILD_DIR, "_tsio.so")
 
 
 def _build() -> Optional[str]:
+    global _STATUS
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+        _STATUS = f"loaded {_SO}"
         return _SO
     try:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
+        compile_cache.writable_dir(_BUILD_DIR)
         # build under a private name, then rename: a concurrent process
         # never loads half a file
         tmp = f"{_SO}.{os.getpid()}.tmp"
@@ -36,25 +45,32 @@ def _build() -> Optional[str]:
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, _SO)
+        _STATUS = f"built {_SO}"
         return _SO
-    except Exception:
-        return None
+    except subprocess.CalledProcessError as e:
+        err = e.stderr.decode(errors="replace").strip().splitlines()
+        _STATUS = f"not built: g++ exited {e.returncode}: {err[-1] if err else ''}"
+    except (OSError, subprocess.SubprocessError, compile_cache.CacheDirError) as e:
+        _STATUS = f"not built: {e}"
+    return None
 
 
 def _lib() -> Optional[ctypes.CDLL]:
-    global _LIB, _TRIED
+    global _LIB, _TRIED, _STATUS
     with _LOCK:
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
         if not os.path.exists(_SRC):
+            _STATUS = f"not built: no source {_SRC}"
             return None
         so = _build()
         if so is None:
             return None
         try:
             lib = ctypes.CDLL(so)
-        except OSError:
+        except OSError as e:
+            _STATUS = f"not loaded: {e}"
             return None
         lib.tsio_open.restype = ctypes.c_void_p
         lib.tsio_open.argtypes = [ctypes.c_char_p, ctypes.c_int64]
@@ -80,6 +96,14 @@ def _lib() -> Optional[ctypes.CDLL]:
 
 def native_available() -> bool:
     return _lib() is not None
+
+
+def status() -> str:
+    """How this process got the C++ reader, building it if it has not
+    tried yet: "built <path>" or "loaded <path>", else why not (the
+    Python reader runs)."""
+    _lib()
+    return _STATUS
 
 
 class Block:

@@ -42,7 +42,10 @@ runs a signal entry and binseg_l2.
 Every csrc/*.cu is compiled with nvcc (one process per source, started
 together, then one link) into a single shared library with a plain C
 interface at first use, keyed on a hash of all the sources, the headers
-they include (csrc/*.cuh) and the flags, and loaded with ctypes.  Nothing
+they include (csrc/*.cuh) and the flags, and loaded with ctypes.  The
+library lives in the compile cache (utils/compile_cache.py:
+TOPSICLE_COMPILE_CACHE, else the package's _build/); one that cannot be
+written raises, and no other place is tried.  Nothing
 is built or imported from CUDA when this module is imported.
 
 A wrapper takes its kernel's plain torch version only for tensors on
@@ -69,10 +72,11 @@ from topsicle_tpu_torch.ops.match import (MAX_ROLLING_K, boundary_sum_signal,
                                           greedy_count, match_positions,
                                           num_windows, unpack_wire, window_counts,
                                           window_signal)
+from topsicle_tpu_torch.utils import compile_cache
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+BUILD_DIR = compile_cache.default_cache_dir()
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LINK_FLAGS = [*_ARCH, "-shared"]
@@ -152,7 +156,7 @@ def build_library() -> Path:
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compile_cache.writable_dir(BUILD_DIR)
     nvcc = find_nvcc()
     work = Path(tempfile.mkdtemp(prefix=f"{so.stem}.", dir=BUILD_DIR))
     procs = []

@@ -152,18 +152,37 @@ class TorchEngine:
 
     def _warmup(self, model) -> None:
         """Build the CUDA kernels before the first batch, so the build
-        shows as set-up time; a failed build raises here."""
+        shows as set-up time; a failed build raises here.  The run log
+        says whether the library was built or found in the compile cache."""
         if model.device.type == "cuda":
+            so = cuda_kernels.library_path()
+            how = "loaded" if so.exists() else "built"
             cuda_kernels.load_library()
+            self.log(f"kernels: {how} {so}")
+
+    def _reader(self) -> str:
+        """The run log's `reader:` line: the reader that runs and where
+        its library came from, or why the C++ reader does not run."""
+        from topsicle_tpu_torch.native import status
+
+        if self._use_native():
+            return f"native C++ (native/tsio.cc), {status()}"
+        if self.cfg.native_io is False:
+            return "python (io/reader.py)"
+        return f"python (io/reader.py); the C++ reader was {status()}"
 
     def precompile(self) -> int:
-        """Build and load the kernels' library (on a card) and check every
-        phrase's table; returns the number of libraries loaded."""
+        """Build and load what a run compiles, into the compile cache
+        (utils/compile_cache.py): the kernels' library on a card and the
+        C++ reader where g++ is; check every phrase's table.  The run log
+        names each library's path.  Returns the number of kernel
+        libraries loaded."""
         for phrase in self.cfg.telophrases():
             model = self._model(phrase, patterns_to_search(self.cfg.pattern, phrase))
             if isinstance(model, OracleScanModel):
                 continue
             self.log(f"precompile: k={phrase} ready on {describe(model.device)}")
+        self.log(f"precompile: reader {self._reader()}")
         return 1 if self.device.type == "cuda" else 0
 
     # -- step 1 ------------------------------------------------------------
@@ -933,8 +952,7 @@ class TorchEngine:
         csv_path = os.path.join(cfg.output_dir, "telolengths_all.csv")
         self.log(f"Output will be here: {csv_path}")
         self.log(f"device: {', '.join(describe(d) for d in self.devices)}")
-        self.log("reader: " + ("native C++ (native/tsio.cc)" if self._use_native()
-                               else "python (io/reader.py)"))
+        self.log(f"reader: {self._reader()}")
 
         pid, nproc = distributed.process_identity(cfg.process_id, cfg.process_count)
         dist = nproc > 1
