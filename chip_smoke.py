@@ -710,6 +710,8 @@ def _cache_phase(repo, work, fq, oracle, device_line, smi):
     the lines to print."""
     import json
 
+    from topsicle_tpu_torch.native import loader
+
     pkg_build = os.path.join(repo, "topsicle_tpu_torch", "_build")
 
     def listing():
@@ -729,7 +731,7 @@ def _cache_phase(repo, work, fq, oracle, device_line, smi):
     log = open(os.path.join(out, "topsicle_run.log")).read()
     libs = sorted(os.listdir(cache))
     kernels = [n for n in libs if n.startswith("libtopsicle_kernels_") and n.endswith(".so")]
-    reader = os.path.join(cache, "_tsio.so")
+    reader = os.path.join(cache, os.path.basename(loader._SO))
     assert len(kernels) == 1 and os.path.exists(reader), f"compile cache holds {libs}"
     so = os.path.join(cache, kernels[0])
     assert f"kernels: built {so}" in log, "--precompile: no 'kernels: built' line"
@@ -737,7 +739,7 @@ def _cache_phase(repo, work, fq, oracle, device_line, smi):
         "--precompile: the C++ reader was not built into the cache"
     assert listing() == before, "--precompile wrote into the package"
     lines = [f"[cache] --precompile with TOPSICLE_COMPILE_CACHE={cache}: built {kernels[0]} "
-             f"and _tsio.so there, nothing new in topsicle_tpu_torch/_build/; wall "
+             f"and {os.path.basename(reader)} there, nothing new in topsicle_tpu_torch/_build/; wall "
              f"{wall:.2f} s from process start"]
     out = os.path.join(work, "port5cache")
     wall, launches = _run_processes(repo, [common + ["--outputDir", out, "--batchSize", "128"]],

@@ -22,6 +22,7 @@ from topsicle_tpu_torch.utils import compile_cache
 
 REPO = Path(__file__).resolve().parent.parent
 PKG_BUILD = REPO / "topsicle_tpu_torch" / "_build"
+READER = Path(t_loader._SO).name      # _tsio-<hash of the source and flags>.so
 
 _PATHS = (
     "import json, sys; sys.modules['jax'] = sys.modules['topsicle_tpu'] = None\n"
@@ -67,7 +68,7 @@ def _reader_stamp():
     that builds the reader into the package's _build/ changes it.  Other
     tests may build there at the same time, so only this file is held."""
     t_loader.native_available()
-    so = PKG_BUILD / "_tsio.so"
+    so = PKG_BUILD / READER
     return so.stat().st_mtime_ns if so.exists() else None
 
 
@@ -77,14 +78,14 @@ def test_env_sends_both_libraries_to_the_cache(tmp_path):
     assert got["default"] == got["build_dir"] == got["reader_dir"] == str(cache)
     assert Path(got["library"]).parent == cache
     assert Path(got["library"]).name.startswith("libtopsicle_kernels_")
-    assert got["reader"] == str(cache / "_tsio.so")
+    assert got["reader"] == str(cache / READER)
 
 
 def test_unset_env_keeps_the_package_build_dir(tmp_path):
     got = _child(_PATHS, tmp_path)
     assert got["default"] == got["build_dir"] == got["reader_dir"] == str(PKG_BUILD)
     assert Path(got["library"]).parent == PKG_BUILD
-    assert got["reader"] == str(PKG_BUILD / "_tsio.so")
+    assert got["reader"] == str(PKG_BUILD / READER)
 
 
 def test_kernel_build_lands_in_the_cache(tmp_path):
@@ -105,6 +106,18 @@ def test_kernel_build_lands_in_the_cache(tmp_path):
     assert not (PKG_BUILD / so.name).exists() and not (PKG_BUILD / (so.stem + ".log")).exists()
 
 
+def test_reader_library_is_named_by_its_source():
+    """The reader's library is named by a hash of tsio.cc and the flags: a
+    changed source (a new ABI) gets a new name, so a cache never hands it
+    a library built from another source."""
+    src = Path(t_loader._SRC).read_bytes()
+    assert READER == t_loader.library_name(src)
+    assert READER.startswith("_tsio-") and READER.endswith(".so")
+    changed = src.replace(b"void tsio_close(", b"void tsio_close (")
+    assert changed != src and t_loader.library_name(changed) != READER
+    assert t_loader.library_name(src + b"\n") != READER
+
+
 def test_precompile_builds_the_reader_in_the_cache(tmp_path):
     """`topsicle-torch --precompile --device cpu` builds the C++ reader
     into the cache and logs its path; a second process loads it without
@@ -122,7 +135,7 @@ def test_precompile_builds_the_reader_in_the_cache(tmp_path):
     for out in ("first", "second"):
         assert _child(code.replace("sys.argv[1]", repr(out)), tmp_path, cache) == {"rc": 0}
         logs.append((tmp_path / out / "topsicle_run.log").read_text())
-    so = cache / "_tsio.so"
+    so = cache / READER
     assert so.exists()
     assert f"precompile: reader native C++ (native/tsio.cc), built {so}" in logs[0]
     assert f"precompile: reader native C++ (native/tsio.cc), loaded {so}" in logs[1]

@@ -833,3 +833,34 @@ def test_window_past_the_sum_body_on_card(dev):
     tc, hc = cpu.step2_boundary(codes, nw, lens)
     assert np.array_equal(t, tc) and np.array_equal(has, hc) and has[0]
     assert len(lines) == 1 and "past the sum kernel's shared memory: greedy_boundary" in lines[0]
+
+
+@pytest.mark.parametrize("body", ["sum", "greedy"])
+def test_failed_fused_launch_clears_the_last_error(dev, body):
+    """A fused launch that fails (a grid of no reads: an invalid
+    configuration) returns its error and leaves CUDA's last error clear,
+    so the next launch in the process succeeds and reports nothing of it."""
+    k, w, slide, B = 5, 100, 6, 16
+    codes, lens = _batch(31, B, 4096, True)
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers("CCCTAAA", k))).to(dev)
+    a, b = _wire(codes, lens, True, dev)
+    L = a.shape[1] * 4
+    W = ops.num_windows(L, w, slide)
+    nw = torch.from_numpy(batching.window_counts_for_lengths(lens, w, slide)).to(dev)
+    t = torch.empty(B, dtype=torch.int64, device=dev)
+    has = torch.empty(B, dtype=torch.uint8, device=dev)
+    args = cuda_kernels._wire_args(a, b, table, k=k, slide=slide, J=w - k, W=W, L=L,
+                                   lean=True)
+    args[-1] = 0                                      # B = 0: a grid of no block
+    rc = getattr(cuda_kernels.load_library(), f"topsicle_{body}_boundary")(
+        *args, 0, nw.data_ptr(), 5, 2, t.data_ptr(), has.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert rc not in (0, -2)
+    fused = cuda_kernels.sum_boundary if body == "sum" else cuda_kernels.greedy_boundary
+    plain = cuda_kernels.sum_boundary_plain if body == "sum" \
+        else cuda_kernels.greedy_boundary_plain
+    kw = dict(k=k, window_size=w, slide=slide, L=L, lean=True)
+    got = fused(a, b, table, nw, **kw)
+    torch.cuda.synchronize()
+    want = plain(a, b, table, nw, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

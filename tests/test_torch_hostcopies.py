@@ -5,10 +5,12 @@ readers, the block cache, the run manifest, part files, the oracle and
 the CLI parsers.  A copy is a copy: same values, same bytes."""
 
 import dataclasses
+import difflib
 import gzip
 import inspect
 import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -286,7 +288,9 @@ def _blocks(native, path, min_len, batch_reads):
 def test_native_reader_block_for_block(reads, name, min_len):
     """The port builds its own copy of native/tsio.cc into its _build/
     directory; its blocks equal the JAX package's reader's and the Python
-    reader's."""
+    reader's, on inputs with records at or under min_len (the FASTQ's
+    two), and its counts of the records, their bases and the short ones
+    equal the Python reader's."""
     if not (j_native.native_available() and t_native.native_available()):
         pytest.skip("no C++ toolchain or zlib: the native reader is unavailable")
     assert os.path.dirname(t_loader._SO) == os.path.join(REPO, "topsicle_tpu_torch", "_build")
@@ -303,11 +307,50 @@ def test_native_reader_block_for_block(reads, name, min_len):
     assert [r for r, _ in py] == [r for r, _ in flat]
     for (_, a), (_, b) in zip(py, flat):
         assert np.array_equal(a, b)
+    seqs = [r.seq for r in t_reader.parse_records(path)]
+    rd = t_native.NativeReader(path, min_len, batch_reads=5)
+    try:
+        assert rd.stats() == (0, 0, 0)
+        for _ in rd.iter_blocks():
+            pass
+        assert rd.stats() == (len(seqs), sum(map(len, seqs)),
+                              sum(len(q) <= min_len for q in seqs))
+    finally:
+        rd.close()
+    assert name != "s.fastq.gz" or sum(len(q) <= min_len for q in seqs) == 2
 
 
 def test_native_source_is_a_copy():
-    assert open(os.path.join(REPO, "native", "tsio.cc"), "rb").read() == \
-        open(t_loader._SRC, "rb").read()
+    """The port's C++ reader is the original with counters added, which
+    the run log's reader and subset counters need (the input's records,
+    bases and short records; the subset writer's seconds re-reading the
+    input): every line of the original is there, in order, but the three
+    the counters replace, and the lines it adds hold no control flow
+    but the counters' own.  test_native_reader_block_for_block holds its
+    blocks to the original's."""
+    replaced = {"    if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) continue;",
+                "                    const char* ids_joined, int fastq_out) {",
+                "  while (rr.next(rec)) {"}
+    flow = ["    } else {",
+            "      if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) {",
+            "        continue;",
+            "  while (true) {",
+            "    if (!more) break;",
+            "  if (stats) stats[0] = std::chrono::duration<double>(reading).count();"]
+    with open(os.path.join(REPO, "native", "tsio.cc")) as fh:
+        original = fh.read().splitlines()
+    with open(t_loader._SRC) as fh:
+        port = fh.read().splitlines()
+    it = iter(port)
+    assert replaced <= set(original)
+    assert all(any(ln == p for p in it) for ln in original if ln not in replaced)
+    ops = difflib.SequenceMatcher(None, original, port, autojunk=False).get_opcodes()
+    removed = [ln for op, i1, i2, _, _ in ops if op != "equal" for ln in original[i1:i2]]
+    added = [ln for op, _, _, j1, j2 in ops if op != "equal" for ln in port[j1:j2]]
+    assert set(removed) == replaced and len(removed) == 3
+    keyword = re.compile(r"\b(if|else|for|while|do|switch|case|continue|break|return|goto)\b")
+    assert [ln for ln in added
+            if not ln.lstrip().startswith("//") and keyword.search(ln)] == flow
 
 
 def test_native_subset_bytes(reads, tmp_path):
@@ -402,7 +445,11 @@ def test_prefetcher_and_timers():
         t = prof.StageTimers()
         with t.stage("step1"):
             pass
-        t.count(reads=2, bases=3_000_000)
+        if prof is t_profiling:     # the port's recorder counts by name
+            t.add("reads.in", 2)
+            t.add("bases.in", 3_000_000)
+        else:
+            t.count(reads=2, bases=3_000_000)
         s = t.summary()
         assert s.startswith("stages: step1=0.00s/1x; wall ") and "2 reads, 3.0 Mbp" in s
         with prof.trace_context(None):

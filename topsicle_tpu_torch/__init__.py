@@ -13,7 +13,8 @@ reference's framework-free modules, under the same relative names:
     topsicle_tpu_torch.native    the C++ reader (native/tsio.cc, built at
                                  first use into the compile cache)
     topsicle_tpu_torch.oracle    the pure-Python reference semantics
-    topsicle_tpu_torch.utils     manifest, prefetch, stage timers, the
+    topsicle_tpu_torch.utils     manifest, prefetch, the span and counter
+                                 recorder (StageTimers), the
                                  compile cache (TOPSICLE_COMPILE_CACHE,
                                  else _build/)
     topsicle_tpu_torch.plots     matplotlib figures (optional import)

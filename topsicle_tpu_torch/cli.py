@@ -42,6 +42,7 @@ from topsicle_tpu_torch.io.writer import RunLog
 from topsicle_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
 from topsicle_tpu_torch.pipeline import make_engine
 from topsicle_tpu_torch.utils import compile_cache
+from topsicle_tpu_torch.utils.profiling import StageTimers, trace_context
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -166,30 +167,49 @@ def config_from_args(args: argparse.Namespace) -> TopsicleConfig:
 
 
 def main(argv=None) -> int:
+    """One job.  Its recorder (utils/profiling.py) spans the job from the
+    parsed arguments until the engine's run returns (`job`), with the
+    set-up (`setup`) and what the engine's run records inside; after the
+    run's closing line the run log gets the `spans:` and `counters:`
+    lines.  --traceDir traces the whole job, the spans with it."""
     start_time = time.time()
     args = build_parser().parse_args(argv)
-    log = RunLog(args.outputDir)
+    timers = StageTimers()
+    with trace_context(args.traceDir, cuda=args.device == "cuda"), timers.span("job"):
+        log = RunLog(args.outputDir)
+        rc = _job(args, log, timers)
+    if rc != 0:
+        return rc
+    if not args.precompile:
+        log(timers.spans_line())
+        log(timers.counters_line())
+    print(f"Elapsed time(s): {time.time() - start_time:.2f} seconds")
+    return 0
 
-    log.plain("---- Topsicle run parameters ---")
-    for k, v in vars(args).items():
-        log(f"{k}: {v}")
-    log.plain("---------------------")
-    log("Starting Topsicle analysis")
 
-    cfg = config_from_args(args)
+def _job(args: argparse.Namespace, log: RunLog, timers: StageTimers) -> int:
+    with timers.span("setup"):
+        log.plain("---- Topsicle run parameters ---")
+        for k, v in vars(args).items():
+            log(f"{k}: {v}")
+        log.plain("---------------------")
+        log("Starting Topsicle analysis")
+
+        cfg = config_from_args(args)
+        try:
+            cfg.validate()
+        except ValueError as e:
+            log(str(e))
+            return 2
+        if args.telophrase is None:
+            log(f"No telophrase provided, use kmer: {cfg.telophrases()}")
+        log.plain("---------------------")
+
+        if args.coordinator:
+            initialize_distributed(args.coordinator, args.processCount, args.processId)
     try:
-        cfg.validate()
-    except ValueError as e:
-        log(str(e))
-        return 2
-    if args.telophrase is None:
-        log(f"No telophrase provided, use kmer: {cfg.telophrases()}")
-    log.plain("---------------------")
-
-    if args.coordinator:
-        initialize_distributed(args.coordinator, args.processCount, args.processId)
-    try:
-        engine = make_engine(cfg, log=log, device=args.device)
+        with timers.span("setup"):
+            engine = make_engine(cfg, log=log, device=args.device, timers=timers)
         if args.precompile:
             if cfg.engine == "oracle":
                 log("--precompile only applies to the device engine")
@@ -207,8 +227,6 @@ def main(argv=None) -> int:
         return 2
     finally:
         shutdown_distributed()
-
-    print(f"Elapsed time(s): {time.time() - start_time:.2f} seconds")
     return 0
 
 

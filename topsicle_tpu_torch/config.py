@@ -69,7 +69,7 @@ class TopsicleConfig:
     use_pallas: Optional[object] = None
     native_io: Optional[bool] = None   # None => auto (C++ loader if built)
     resume: bool = False         # skip (file, phrase) units completed per manifest
-    trace_dir: Optional[str] = None    # jax.profiler trace output dir
+    trace_dir: Optional[str] = None    # --traceDir: cli.main's torch.profiler trace
     # multi-host: None => from jax.distributed (1 process unless
     # initialized); explicit values shard input files round-robin
     process_id: Optional[int] = None

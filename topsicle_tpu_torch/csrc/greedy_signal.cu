@@ -304,7 +304,10 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
   if (p.smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         greedy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(e);
+    }
   }
   using topsicle::aligned16;
   cudaLaunchAttribute attr;
@@ -320,7 +323,10 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
       static_cast<const int32_t*>(table), K, k, slide, J, L, W, p.WB, p.span, p.Kg, p.pw,
       static_cast<int32_t*>(out), static_cast<const int32_t*>(n_windows), jump, min_size,
       static_cast<long long*>(t_out), static_cast<uint8_t*>(has_out));
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  // read (and so clear) the last error on both paths: a failed launch must
+  // not leave it set for the next launch in the process to report
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 }  // namespace

@@ -149,7 +149,10 @@ extern "C" int topsicle_step1_counts(const void* packed, int packed_stride,
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         step1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch must not report it
+      return static_cast<int>(e);
+    }
   }
   using topsicle::aligned16;
   step1_kernel<<<R, kThreads, static_cast<size_t>(smem_bytes),

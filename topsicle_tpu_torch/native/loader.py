@@ -3,6 +3,9 @@
 The library is built into the compile cache (utils/compile_cache.py:
 TOPSICLE_COMPILE_CACHE, else topsicle_tpu_torch/_build/), never beside
 the source, so an installed package is whole and a checkout stays clean.
+Its name carries a hash of the source and the compiler flags
+(`library_name`), so a cache shared by installs of other versions never
+hands one a library built from another source, whatever the files' times.
 When it cannot be built (no g++ or zlib, a cache that cannot be
 written), callers fall back to the Python reader and `status()` says
 why."""
@@ -10,10 +13,11 @@ why."""
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -27,12 +31,29 @@ _STATUS = ""        # "built <path>", "loaded <path>" or "not built: <why>"
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "native", "tsio.cc")
 _BUILD_DIR = str(compile_cache.default_cache_dir())
-_SO = os.path.join(_BUILD_DIR, "_tsio.so")
+_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+
+
+def library_name(source: bytes) -> str:
+    """The file name of the library built from `source` with _FLAGS."""
+    h = hashlib.sha256(source + b"\0" + " ".join(_FLAGS).encode())
+    return f"_tsio-{h.hexdigest()[:16]}.so"
+
+
+def _source() -> bytes:
+    try:
+        with open(_SRC, "rb") as fh:
+            return fh.read()
+    except OSError:
+        return b""          # _lib() reports the missing source
+
+
+_SO = os.path.join(_BUILD_DIR, library_name(_source()))
 
 
 def _build() -> Optional[str]:
     global _STATUS
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
+    if os.path.exists(_SO):
         _STATUS = f"loaded {_SO}"
         return _SO
     try:
@@ -41,7 +62,7 @@ def _build() -> Optional[str]:
         # never loads half a file
         tmp = f"{_SO}.{os.getpid()}.tmp"
         subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC, "-o", tmp, "-lz"],
+            ["g++", *_FLAGS, _SRC, "-o", tmp, "-lz"],
             check=True, capture_output=True, timeout=120,
         )
         os.replace(tmp, _SO)
@@ -85,10 +106,13 @@ def _lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64,
         ]
+        lib.tsio_stats.restype = None
+        lib.tsio_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)]
         lib.tsio_close.argtypes = [ctypes.c_void_p]
         lib.tsio_subset.restype = ctypes.c_int64
         lib.tsio_subset.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double),
         ]
         _LIB = lib
         return _LIB
@@ -182,6 +206,14 @@ class NativeReader:
             for i, rid in enumerate(blk.ids):
                 yield rid, blk.codes[blk.offs[i]:blk.offs[i + 1]].copy()
 
+    def stats(self) -> Tuple[int, int, int]:
+        """(records, bases, short records) parsed so far: every record of
+        the input, the short ones (len <= min_len, skipped) too."""
+        out = (ctypes.c_int64 * 3)()
+        if self._h is not None:
+            self._lib.tsio_stats(self._h, out)
+        return out[0], out[1], out[2]
+
     def close(self) -> None:
         if self._h is not None:
             self._lib.tsio_close(self._h)
@@ -195,13 +227,19 @@ class NativeReader:
 
 
 def write_subset_native(in_path: str, out_path: str, keep_ids: List[str],
-                        fastq_out: bool) -> int:
+                        fastq_out: bool, stats: Optional[Dict[str, float]] = None) -> int:
+    """Write the records of `keep_ids` to out_path; the records written.
+    `stats`, where given, gets "reread_s": the seconds spent re-reading
+    the input (inflate and parse)."""
     lib = _lib()
     if lib is None:
         raise RuntimeError("native IO library unavailable")
     joined = "\n".join(keep_ids).encode()
+    reread = ctypes.c_double(0.0)
     n = lib.tsio_subset(in_path.encode(), out_path.encode(), joined,
-                        1 if fastq_out else 0)
+                        1 if fastq_out else 0, ctypes.byref(reread))
+    if stats is not None:
+        stats["reread_s"] = reread.value
     if n < 0:
         raise IOError(f"native subset write failed for {in_path}")
     return int(n)

@@ -15,6 +15,7 @@
 
 #include <zlib.h>
 
+#include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -193,6 +194,8 @@ struct Reader {
   int64_t min_len;
   Record pending;
   bool has_pending = false;
+  // every record parsed, its bases, and those at or under min_len
+  int64_t records = 0, bases = 0, short_records = 0;
   explicit Reader(const char* path, int64_t ml) : rr(path), min_len(ml) {}
 };
 
@@ -239,8 +242,14 @@ int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
     } else if (!r->rr.next(rec)) {
       if (r->rr.error()) return -3;  // truncated/corrupt stream
       break;
+    } else {
+      ++r->records;
+      r->bases += static_cast<int64_t>(rec.seq.size());
+      if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) {
+        ++r->short_records;
+        continue;
+      }
     }
-    if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) continue;
     std::string id = first_token(rec.header);
     if (code_pos + static_cast<int64_t>(rec.seq.size()) > codes_cap ||
         id_pos + static_cast<int64_t>(id.size()) > ids_cap) {
@@ -258,14 +267,25 @@ int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
   return n;
 }
 
+// The handle's records so far: out[0] every record parsed, out[1] their
+// bases, out[2] the records at or under min_len (skipped).
+void tsio_stats(void* handle, int64_t* out) {
+  const Reader* r = static_cast<const Reader*>(handle);
+  out[0] = r->records;
+  out[1] = r->bases;
+  out[2] = r->short_records;
+}
+
 void tsio_close(void* handle) { delete static_cast<Reader*>(handle); }
 
 // Writes the subset file: records whose id is in ids_joined
 // ('\n'-separated), formatted Biopython-style.  fastq_out selects the
 // output format (the caller applies the reference's extension rule).
 // Returns records written, or -1 on error.
+// Where stats is not null, stats[0] gets the seconds spent reading the
+// input's records (inflate and parse: RecordReader), on the steady clock.
 int64_t tsio_subset(const char* in_path, const char* out_path,
-                    const char* ids_joined, int fastq_out) {
+                    const char* ids_joined, int fastq_out, double* stats) {
   std::unordered_set<std::string> keep;
   {
     const char* p = ids_joined;
@@ -279,14 +299,21 @@ int64_t tsio_subset(const char* in_path, const char* out_path,
       p = nl + 1;
     }
   }
+  using Clock = std::chrono::steady_clock;
+  const Clock::time_point opened = Clock::now();
   RecordReader rr(in_path);
+  Clock::duration reading = Clock::now() - opened;
   if (rr.format() == 0) return -1;
   FILE* out = fopen(out_path, "w");
   if (!out) return -1;
   Record rec;
   int64_t written = 0;
   std::string buf;
-  while (rr.next(rec)) {
+  while (true) {
+    const Clock::time_point t = Clock::now();
+    const bool more = rr.next(rec);
+    reading += Clock::now() - t;
+    if (!more) break;
     if (!keep.count(first_token(rec.header))) continue;
     buf.clear();
     if (fastq_out) {
@@ -314,6 +341,7 @@ int64_t tsio_subset(const char* in_path, const char* out_path,
     }
     ++written;
   }
+  if (stats) stats[0] = std::chrono::duration<double>(reading).count();
   fclose(out);
   if (rr.error()) {  // stream died mid-way: the subset is incomplete
     remove(out_path);

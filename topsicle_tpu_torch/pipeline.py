@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -52,7 +53,7 @@ from topsicle_tpu_torch.parallel.mesh import local_devices
 from topsicle_tpu_torch.parallel.multihost import GlobalScanModel, or_across_processes
 from topsicle_tpu_torch.parallel.sharding import ShardedScanModel
 from topsicle_tpu_torch.utils.manifest import RunManifest
-from topsicle_tpu_torch.utils.profiling import StageTimers, trace_context
+from topsicle_tpu_torch.utils.profiling import StageTimers
 
 
 XLA_KERNEL_LINE = ("the torch engine has no XLA programs; --kernel xla takes the auto "
@@ -76,10 +77,13 @@ class _Passer:
 class TorchEngine:
     """The engine on torch devices: 'cuda' computes on every card this
     process sees (batches split by rows when there are several), 'cpu'
-    on the CPU, a torch.device on that device alone."""
+    on the CPU, a torch.device on that device alone.  `timers` is the
+    job's recorder of spans and counters (utils/profiling.py), where the
+    caller keeps one; else each run makes its own."""
 
     def __init__(self, cfg: TopsicleConfig, log: Optional[writer.RunLog] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 timers: Optional[StageTimers] = None):
         import threading
 
         cfg.validate()
@@ -100,6 +104,7 @@ class TorchEngine:
                                             # final phrase (nothing would
                                             # ever read those entries)
         self._bc_skip: set = set()          # files that exhausted the budget
+        self._parsed: set = set()           # files this run has parsed
         # Device batch size (cfg.batch_size rounded up to a mesh
         # multiple when >1 device is visible), set by _model.  Kept
         # engine-local: cfg stays immutable under the caller — bench.py
@@ -108,6 +113,8 @@ class TorchEngine:
         self._device_batch: Optional[int] = None
         self.devices = [device] if isinstance(device, torch.device) else local_devices(device)
         self.device = self.devices[0]
+        self._job_timers = timers
+        self.timers = timers if timers is not None else StageTimers()
 
     @property
     def _B(self) -> int:
@@ -277,7 +284,36 @@ class TorchEngine:
         keeps the host path vectorized end-to-end (no per-read slice/
         copy/queue work).  Read-level failures (truncated gzip,
         malformed records) surface as InputFileError so the run can skip
-        the file instead of dying."""
+        the file instead of dying.
+
+        A run's first parse of a file counts the input: its records, their
+        bases and the short ones (`reads.in`, `bases.in`, `reads.short`),
+        and the seconds spent producing its blocks (`reader.busy_s`: from
+        resuming to yielding, so no wait to hand a block on).  A later
+        phrase's replay from the block cache or parse again is in
+        neither."""
+        first = path not in self._parsed
+        self._parsed.add(path)
+        counts = [0, 0, 0]     # records, bases, records at or under minSeqLength
+        busy = 0.0
+        t = time.perf_counter()
+        try:
+            for blk in self._parse_input(path, counts):
+                busy += time.perf_counter() - t
+                t = None
+                yield blk
+                t = time.perf_counter()
+        finally:
+            if t is not None:
+                busy += time.perf_counter() - t
+            if first:
+                for name, v in zip(("reads.in", "bases.in", "reads.short", "reader.busy_s"),
+                                   (*counts, busy)):
+                    self.timers.add(name, v)
+
+    def _parse_input(self, path: str, counts: List[int]):
+        """_parse_blocks' parse, with the input's [records, bases, short
+        records] added to `counts`."""
         from topsicle_tpu_torch.native.loader import Block
 
         cfg = self.cfg
@@ -290,12 +326,15 @@ class TorchEngine:
                 try:
                     yield from rd.iter_blocks()
                 finally:
+                    counts[:] = rd.stats()
                     rd.close()
                 return
             ids: List[str] = []
             chunks: List[np.ndarray] = []
             offs = [0]
             for rec in reader.parse_records(path):
+                counts[0] += 1
+                counts[1] += len(rec.seq)
                 if len(rec.seq) > cfg.min_seq_length:
                     c = batching.encode_read(rec.seq)
                     ids.append(rec.id)
@@ -305,6 +344,8 @@ class TorchEngine:
                         yield Block(ids, np.concatenate(chunks),
                                     np.asarray(offs, np.int64))
                         ids, chunks, offs = [], [], [0]
+                else:
+                    counts[2] += 1
             if ids:
                 yield Block(ids, np.concatenate(chunks),
                             np.asarray(offs, np.int64))
@@ -333,70 +374,78 @@ class TorchEngine:
         round 3's materialized list) lets the caller pipeline step 2
         behind step 1 with O(batch) peak memory: a monolithic
         whole-genome file no longer accumulates every passing read's
-        tail slice (~20 kB each) before the first boundary runs."""
-        import contextlib
-
+        tail slice (~20 kB each) before the first boundary runs.  Spans
+        (`timers`): reader_wait, and step1 with step1.launch, step1.wait
+        and step1.select; none is open across a yield."""
         cfg = self.cfg
         cutoff = cfg.min_cutoff()
         B = self._B
         depth = 2
         pending = []  # [(order0, block, device_counts)]
-        stage = (lambda: timers.stage("step1")) if timers is not None \
-            else contextlib.nullcontext
+        timers = timers if timers is not None else StageTimers()
+        span = timers.span
 
         def drain_one():
             order0, blk, fut = pending.pop(0)
-            counts = np.asarray(fut)[: len(blk)]
-            keep, sel_j, fwd, trc = self._select_hits(counts, cutoff)
-            offs = blk.offs
-            out = []
-            for i in np.nonzero(keep)[0]:
-                i = int(i)
-                codes = blk.codes[offs[i]:offs[i + 1]]
-                tail = "forward" if fwd[i] else "reverse"
-                out.append(
-                    _Passer(
-                        order0 + i, blk.ids[i], kmers[int(sel_j[i])], tail,
-                        float(trc[i]),
-                        # .copy(): drop the reference into the block's
-                        # flat buffer so non-passing reads are freed
-                        batching.extract_tail(
-                            codes, tail, cfg.trimfirst, cfg.maxlengthtelo
-                        ).copy(),
-                        int(offs[i + 1] - offs[i]),
+            with span("step1.wait"):
+                counts = np.asarray(fut)[: len(blk)]
+            with span("step1.select"):
+                keep, sel_j, fwd, trc = self._select_hits(counts, cutoff)
+                offs = blk.offs
+                out = []
+                for i in np.nonzero(keep)[0]:
+                    i = int(i)
+                    codes = blk.codes[offs[i]:offs[i + 1]]
+                    tail = "forward" if fwd[i] else "reverse"
+                    out.append(
+                        _Passer(
+                            order0 + i, blk.ids[i], kmers[int(sel_j[i])], tail,
+                            float(trc[i]),
+                            # .copy(): drop the reference into the block's
+                            # flat buffer so non-passing reads are freed
+                            batching.extract_tail(
+                                codes, tail, cfg.trimfirst, cfg.maxlengthtelo
+                            ).copy(),
+                            int(offs[i + 1] - offs[i]),
+                        )
                     )
-                )
             return out
 
         # parse/encode ahead on a reader thread (bounded by ~2 blocks)
         if source is None:
             source = self._read_source(path)
         order = 0
-        for blk in source:
-            with stage():
-                n = len(blk)
-                ends, ends_len_blk = batching.ends_batch_flat(
-                    blk.codes, blk.offs, cfg.no_bp)
-                ends_len = np.zeros(B, np.int32)
-                ends_len[:n] = ends_len_blk
-                if n < B:  # pad to the static batch shape
-                    pad = np.full((B - n, 2, cfg.no_bp), 0xFF, np.uint8)
-                    ends = np.concatenate([ends, pad], axis=0)
-                pending.append(
-                    (order, blk, model.step1_counts_launch(ends, ends_len)))
+        blocks = iter(source)
+        while True:
+            with span("reader_wait"):
+                blk = next(blocks, None)
+            if blk is None:
+                break
+            with timers.stage("step1"):
+                with span("step1.launch"):
+                    n = len(blk)
+                    ends, ends_len_blk = batching.ends_batch_flat(
+                        blk.codes, blk.offs, cfg.no_bp)
+                    ends_len = np.zeros(B, np.int32)
+                    ends_len[:n] = ends_len_blk
+                    if n < B:  # pad to the static batch shape
+                        pad = np.full((B - n, 2, cfg.no_bp), 0xFF, np.uint8)
+                        ends = np.concatenate([ends, pad], axis=0)
+                    pending.append(
+                        (order, blk, model.step1_counts_launch(ends, ends_len)))
                 order += n
                 drained = drain_one() if len(pending) > depth else []
             yield from drained
         while pending:
-            with stage():
+            with timers.stage("step1"):
                 drained = drain_one()
             yield from drained
 
     def _step1_file(self, path: str, kmers: Sequence[str], model,
-                    source=None) -> List[_Passer]:
+                    source=None, timers=None) -> List[_Passer]:
         """Materialized _step1_stream (the --read_check debug path and
         the benchmarks use this form)."""
-        return list(self._step1_stream(path, kmers, model, source=source))
+        return list(self._step1_stream(path, kmers, model, source=source, timers=timers))
 
     # -- subset emission ---------------------------------------------------
     def _write_subset(self, path: str, hit_ids: set) -> None:
@@ -414,7 +463,10 @@ class TorchEngine:
             if self._use_native():
                 from topsicle_tpu_torch.native import write_subset_native
 
-                write_subset_native(path, tmp_path, sorted(hit_ids), fmt == "fastq")
+                stats: Dict[str, float] = {}
+                write_subset_native(path, tmp_path, sorted(hit_ids), fmt == "fastq",
+                                    stats=stats)
+                self.timers.add("subset.reread_s", stats["reread_s"])
             else:
                 with open(tmp_path, "w") as fh:
                     for rec in reader.parse_records(path):
@@ -445,44 +497,51 @@ class TorchEngine:
         launches on the SAME packed wire arrays as the boundary — one
         host pack, lean wire when clean, and the [B, K, W] tensor
         pipelines with everything else instead of a packed-again
-        synchronous re-run per batch (VERDICT r3 item 6)."""
-        import contextlib
+        synchronous re-run per batch (VERDICT r3 item 6).  Spans
+        (`timers`): step2 with step2.pack, step2.launch and step2.wait;
+        counters step2.bases_work and step2.bases_launched."""
         import itertools
 
         cfg = self.cfg
         B = self._B
         depth = 2
-        stage = (lambda: timers.stage("step2")) if timers is not None \
-            else contextlib.nullcontext
-        want_extras = (cfg.plot or cfg.rawcountpattern) and \
-            hasattr(model, "pack_scan_batch")
+        timers = timers if timers is not None else StageTimers()
+        span = timers.span
+        can_pack = hasattr(model, "pack_scan_batch")
+        want_extras = (cfg.plot or cfg.rawcountpattern) and can_pack
 
         def launch(group):
-            # "static" scan mode pads every batch to one L so the whole
-            # run uses ONE compiled step-2 program (remote TPU compile
-            # services charge seconds..minutes per new program shape)
-            pad_len = cfg.static_scan_length() or max(
-                len(p.tail_codes) for p in group)
-            codes, lens = batching.tails_batch(
-                [p.tail_codes for p in group], pad_len, cfg.length_bucket_quantum
-            )
-            if len(group) < B:
-                pad = np.full((B - len(group), codes.shape[1]), 0xFF, np.uint8)
-                codes = np.concatenate([codes, pad], axis=0)
-                lens = np.concatenate([lens, np.zeros(B - len(group), np.int32)])
-            n_windows = batching.window_counts_for_lengths(lens, cfg.window_size, cfg.slide_value())
-            if want_extras:
-                # pack once; both programs ride the same device arrays
-                # (the boundary takes the XLA path here — bit-identical
-                # to the Pallas variant, property-tested)
-                packed = model.pack_scan_batch(codes, lens)
-                fut = model.step2_boundary_launch_packed(packed, n_windows)
-                raw = model.rawcounts_launch_packed(packed)
-                return fut, (raw, n_windows)
-            return model.step2_boundary_launch(codes, n_windows, lens), None
+            with span("step2.pack"):
+                # "static" scan mode pads every batch to one L so the whole
+                # run uses ONE compiled step-2 program (remote TPU compile
+                # services charge seconds..minutes per new program shape)
+                pad_len = cfg.static_scan_length() or max(
+                    len(p.tail_codes) for p in group)
+                codes, lens = batching.tails_batch(
+                    [p.tail_codes for p in group], pad_len, cfg.length_bucket_quantum
+                )
+                if len(group) < B:
+                    pad = np.full((B - len(group), codes.shape[1]), 0xFF, np.uint8)
+                    codes = np.concatenate([codes, pad], axis=0)
+                    lens = np.concatenate([lens, np.zeros(B - len(group), np.int32)])
+                n_windows = batching.window_counts_for_lengths(
+                    lens, cfg.window_size, cfg.slide_value())
+                packed = model.pack_scan_batch(codes, lens) if can_pack else None
+            timers.add("step2.bases_work", sum(len(p.tail_codes) for p in group))
+            timers.add("step2.bases_launched", codes.size)
+            with span("step2.launch"):
+                if want_extras:
+                    # pack once; both programs ride the same device arrays
+                    fut = model.step2_boundary_launch_packed(packed, n_windows)
+                    raw = model.rawcounts_launch_packed(packed)
+                    return fut, (raw, n_windows)
+                if packed is not None:
+                    return model.step2_boundary_launch_packed(packed, n_windows), None
+                return model.step2_boundary_launch(codes, n_windows, lens), None
 
         def consume(group, fut, extras):
-            t, has = (np.asarray(x) for x in fut)
+            with span("step2.wait"):
+                t, has = (np.asarray(x) for x in fut)
             bounds = []
             for j, p in enumerate(group):
                 maxc = min(cfg.maxlengthtelo, p.seq_len)
@@ -499,12 +558,12 @@ class TorchEngine:
             # lands in the step1 stage, not here)
             group = list(itertools.islice(it, B))
             if group:
-                with stage():
+                with timers.stage("step2"):
                     inflight.append((group, *launch(group)))
             if (group and len(inflight) > depth) or (not group and inflight):
                 g, f, e = inflight.pop(0)
-                with stage():      # the device wait; row emission happens
-                    res = consume(g, f, e)     # in the consumer, unstaged
+                with timers.stage("step2"):    # the device wait; row emission
+                    res = consume(g, f, e)     # is the consumer's `rows` span
                 yield res
             if not group and not inflight:
                 return
@@ -611,7 +670,7 @@ class TorchEngine:
         image_num = 1
         try:
             if cfg.read_check is not None:
-                passers = self._step1_file(path, kmers, model, source=src)
+                passers = self._step1_file(path, kmers, model, source=src, timers=timers)
                 with timers.stage("subset"):
                     self._write_subset(path, {p.read_id for p in passers})
                 self.log("checking specific read:", cfg.read_check)
@@ -629,13 +688,14 @@ class TorchEngine:
                         yield p
                 stream = tracked()
             for group, bounds, extras in self._step2_batches(stream, model, timers=timers):
-                self._per_read_extras(group, model, phrase, bounds, image_num, extras)
-                image_num += len(group)
-                for p, b in zip(group, bounds):
-                    unit_rows.append(ReadResult(lbl, phrase, p.read_id, p.trc, b, p.kmer,
-                                                p.tail))
-                    timers.count(reads=1, bases=p.seq_len)
-                    p.tail_codes = None     # keep peak host memory O(batch)
+                with timers.span("rows"):
+                    self._per_read_extras(group, model, phrase, bounds, image_num, extras)
+                    image_num += len(group)
+                    for p, b in zip(group, bounds):
+                        unit_rows.append(ReadResult(lbl, phrase, p.read_id, p.trc, b, p.kmer,
+                                                    p.tail))
+                        p.tail_codes = None     # keep peak host memory O(batch)
+                    timers.add("reads.passed", len(group))
             if cfg.read_check is None:
                 with timers.stage("subset"):
                     self._write_subset(path, set(hit_ids))
@@ -653,13 +713,14 @@ class TorchEngine:
         cfg = self.cfg
 
         def fn(trc, telo, vx, vy, coeffs):
-            try:
-                from topsicle_tpu_torch.plots import quadfit_plot
+            with self.timers.span("aggregate.plot"):
+                try:
+                    from topsicle_tpu_torch.plots import quadfit_plot
 
-                out = os.path.join(cfg.output_dir, f"quadfit_{phrase}mer_{cfg.pattern}.png")
-                quadfit_plot(trc, telo, vx, vy, coeffs, out)
-            except Exception as e:
-                self.log(f"quadfit plot failed: {e}")
+                    out = os.path.join(cfg.output_dir, f"quadfit_{phrase}mer_{cfg.pattern}.png")
+                    quadfit_plot(trc, telo, vx, vy, coeffs, out)
+                except Exception as e:
+                    self.log(f"quadfit plot failed: {e}")
         return fn
 
     # -- --shardMode global --------------------------------------------------
@@ -787,7 +848,7 @@ class TorchEngine:
                     extras.setdefault(file_idx, []).append((p, b))
                 else:
                     p.tail_codes = None
-                timers.count(reads=1, bases=p.seq_len)
+            timers.add("reads.passed", len(group))
             if want_extras and group:
                 # passers drain in stream order: files below the newest
                 # one seen are complete
@@ -946,62 +1007,72 @@ class TorchEngine:
 
     # -- full run ------------------------------------------------------------
     def run(self) -> List[ReadResult]:
+        """The whole run.  Spans (the job's recorder, or this run's own):
+        setup (this preamble), model, unit a (file, phrase) holding its
+        reader_wait, step1, step2, rows and subset spans, emit, and
+        aggregate with aggregate.plot; the `stages:` line names step1,
+        step2 and subset.  --shardMode global times its three stages
+        alone."""
         cfg = self.cfg
-        timers = StageTimers()
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        csv_path = os.path.join(cfg.output_dir, "telolengths_all.csv")
-        self.log(f"Output will be here: {csv_path}")
-        self.log(f"device: {', '.join(describe(d) for d in self.devices)}")
-        self.log(f"reader: {self._reader()}")
+        if self._job_timers is None:
+            self.timers = StageTimers()
+        timers = self.timers
+        with timers.span("setup"):
+            os.makedirs(cfg.output_dir, exist_ok=True)
+            csv_path = os.path.join(cfg.output_dir, "telolengths_all.csv")
+            self.log(f"Output will be here: {csv_path}")
+            self.log(f"device: {', '.join(describe(d) for d in self.devices)}")
+            self.log(f"reader: {self._reader()}")
 
-        pid, nproc = distributed.process_identity(cfg.process_id, cfg.process_count)
-        dist = nproc > 1
-        if dist and (cfg.resume or cfg.read_check is not None):
-            raise ValueError("distributed runs do not support resume or read_check")
-        if cfg.shard_mode == "global":
-            if cfg.read_check is not None:
-                raise ValueError("shardMode=global does not support read_check "
-                                 "(use shardMode=files)")
-            world = distributed.world()[1]
-            if dist and world != nproc:
-                raise ValueError(
-                    "shardMode=global needs a torch.distributed process group across "
-                    f"all processes (it has {world} process(es), --processCount says "
-                    f"{nproc}); pass --coordinator")
-        if dist:
-            # drop this process's stale marker and parts of a crashed run
-            distributed.reset_mine(cfg.output_dir, pid, nproc)
+            pid, nproc = distributed.process_identity(cfg.process_id, cfg.process_count)
+            dist = nproc > 1
+            if dist and (cfg.resume or cfg.read_check is not None):
+                raise ValueError("distributed runs do not support resume or read_check")
+            if cfg.shard_mode == "global":
+                if cfg.read_check is not None:
+                    raise ValueError("shardMode=global does not support read_check "
+                                     "(use shardMode=files)")
+                world = distributed.world()[1]
+                if dist and world != nproc:
+                    raise ValueError(
+                        "shardMode=global needs a torch.distributed process group across "
+                        f"all processes (it has {world} process(es), --processCount says "
+                        f"{nproc}); pass --coordinator")
+            if dist:
+                # drop this process's stale marker and parts of a crashed run
+                distributed.reset_mine(cfg.output_dir, pid, nproc)
 
-        manifest = None
-        kept_rows: Dict[tuple, List[tuple]] = {}
-        if cfg.resume:
-            manifest, kept_rows = self._prepare_resume(csv_path)
-        elif not dist or pid == 0:
-            if os.path.exists(csv_path) and os.path.getsize(csv_path) > 0:
-                if not cfg.override:
-                    raise FileExistsError(
-                        f"Output file {csv_path} already exists and is not empty. "
-                        "Use --override to force overwrite.")
-                self.log(f"Output file {csv_path} already exists; overwriting it "
-                         "(--override given).")
-                os.remove(csv_path)
-            writer.write_csv_header(csv_path)
-            manifest = RunManifest(cfg.output_dir)
-            manifest.reset()
+            manifest = None
+            kept_rows: Dict[tuple, List[tuple]] = {}
+            if cfg.resume:
+                manifest, kept_rows = self._prepare_resume(csv_path)
+            elif not dist or pid == 0:
+                if os.path.exists(csv_path) and os.path.getsize(csv_path) > 0:
+                    if not cfg.override:
+                        raise FileExistsError(
+                            f"Output file {csv_path} already exists and is not empty. "
+                            "Use --override to force overwrite.")
+                    self.log(f"Output file {csv_path} already exists; overwriting it "
+                             "(--override given).")
+                    os.remove(csv_path)
+                writer.write_csv_header(csv_path)
+                manifest = RunManifest(cfg.output_dir)
+                manifest.reset()
 
-        results: List[ReadResult] = []
-        phrase_to_telo: Dict[int, List[float]] = {}
-        phrase_to_trc: Dict[int, List[float]] = {}
-        paths = cfg.input_paths()
-        local_files = distributed.my_files(paths, pid, nproc)
-        if self._bc_enabled:
-            # fresh budget per run; a fresh run never replays an old cache.
-            # Processes of a distributed run start unsynchronised, so they
-            # leave the clear to process 0 after the merge.
-            self._bc_left = blockcache.cache_budget_bytes()
-            self._bc_skip.clear()
-            if not cfg.resume and not dist:
-                blockcache.clear(cfg.output_dir)
+            results: List[ReadResult] = []
+            phrase_to_telo: Dict[int, List[float]] = {}
+            phrase_to_trc: Dict[int, List[float]] = {}
+            paths = cfg.input_paths()
+            local_files = distributed.my_files(paths, pid, nproc)
+            self._parsed.clear()
+            if self._bc_enabled:
+                # fresh budget per run; a fresh run never replays an old cache.
+                # Processes of a distributed run start unsynchronised, so they
+                # leave the clear to process 0 after the merge.
+                self._bc_left = blockcache.cache_budget_bytes()
+                self._bc_skip.clear()
+                if not cfg.resume and not dist:
+                    blockcache.clear(cfg.output_dir)
 
         def emit(path, file_idx, phrase, unit: List[ReadResult]):
             """A computed unit: its CSV rows (a part file when distributed),
@@ -1031,56 +1102,58 @@ class TorchEngine:
             return True
 
         phrases = cfg.telophrases()
-        with trace_context(cfg.trace_dir, cuda=self.device.type == "cuda"):
-            for phrase_i, phrase in enumerate(phrases):
-                # the last phrase's parse is never replayed: no cache writes
-                self._bc_write = self._bc_enabled and phrase_i != len(phrases) - 1
-                kmers = patterns_to_search(cfg.pattern, phrase)
-                self.log("patterns to search:", kmers)
-                if cfg.shard_mode == "global":
-                    self.log("begin processing reads (global mesh)")
-                    todo = [(i, p) for i, p in local_files
-                            if not (cfg.resume and manifest.is_done(p, phrase))]
-                    rows_by_file, failed = self._run_phrase_global(phrase, kmers, todo,
-                                                                   timers)
-                    for file_idx, path in local_files:
-                        if kept(path, phrase) or file_idx in failed:
-                            continue
-                        lbl = writer.file_label(path)
-                        _, rows, trcs, _ = rows_by_file.get(file_idx, (lbl, [], [], []))
-                        emit(path, file_idx, phrase,
-                             [ReadResult(lbl, phrase, r[3], trc, r[4])
-                              for r, trc in zip(rows, trcs)])
-                    continue
-
-                model = self._model(phrase, kmers)
-                self.log("begin processing reads")
-                # read ahead: up to threads-1 later files parse while this
-                # one drives the device; files are consumed in order, so the
-                # CSV is the same at any thread count
-                ahead = max(0, cfg.threads_value() - 1)
-                todo = [p for _, p in local_files
+        for phrase_i, phrase in enumerate(phrases):
+            # the last phrase's parse is never replayed: no cache writes
+            self._bc_write = self._bc_enabled and phrase_i != len(phrases) - 1
+            kmers = patterns_to_search(cfg.pattern, phrase)
+            self.log("patterns to search:", kmers)
+            if cfg.shard_mode == "global":
+                self.log("begin processing reads (global mesh)")
+                todo = [(i, p) for i, p in local_files
                         if not (cfg.resume and manifest.is_done(p, phrase))]
-                todo_pos = {p: i for i, p in enumerate(todo)}
-                sources: Dict[str, object] = {}
-                try:
-                    for file_idx, path in local_files:
-                        if kept(path, phrase):
-                            continue
+                rows_by_file, failed = self._run_phrase_global(phrase, kmers, todo,
+                                                               timers)
+                for file_idx, path in local_files:
+                    if kept(path, phrase) or file_idx in failed:
+                        continue
+                    lbl = writer.file_label(path)
+                    _, rows, trcs, _ = rows_by_file.get(file_idx, (lbl, [], [], []))
+                    emit(path, file_idx, phrase,
+                         [ReadResult(lbl, phrase, r[3], trc, r[4])
+                          for r, trc in zip(rows, trcs)])
+                continue
+
+            with timers.span("model"):
+                model = self._model(phrase, kmers)
+            self.log("begin processing reads")
+            # read ahead: up to threads-1 later files parse while this
+            # one drives the device; files are consumed in order, so the
+            # CSV is the same at any thread count
+            ahead = max(0, cfg.threads_value() - 1)
+            todo = [p for _, p in local_files
+                    if not (cfg.resume and manifest.is_done(p, phrase))]
+            todo_pos = {p: i for i, p in enumerate(todo)}
+            sources: Dict[str, object] = {}
+            try:
+                for file_idx, path in local_files:
+                    if kept(path, phrase):
+                        continue
+                    with timers.span("unit"):
                         src = sources.pop(path, None) or self._read_source(path)
                         j = todo_pos[path]
                         for q in todo[j + 1:j + 1 + ahead]:
                             if q not in sources:
                                 sources[q] = self._read_source(q)
                         unit = self._run_unit(path, phrase, kmers, model, src, timers)
-                        if unit is not None:
+                    if unit is not None:
+                        with timers.span("emit"):
                             emit(path, file_idx, phrase, unit)
-                finally:
-                    # abandoned read-ahead sources must not leave reader
-                    # threads blocked on full queues holding file handles
-                    for s in sources.values():
-                        s.close()
-                self.log("finished processing all reads")
+            finally:
+                # abandoned read-ahead sources must not leave reader
+                # threads blocked on full queues holding file handles
+                for s in sources.values():
+                    s.close()
+            self.log("finished processing all reads")
         if self._bc_enabled and not dist:
             blockcache.clear(cfg.output_dir)
         self.log(timers.summary())
@@ -1096,18 +1169,20 @@ class TorchEngine:
             distributed.cleanup_parts(cfg.output_dir)
             if self._bc_enabled:
                 blockcache.clear(cfg.output_dir)
-        aggregate.summarize_all(phrase_to_trc, phrase_to_telo, cfg.input_trc(),
-                                log=self.log, plot_fn_for_phrase=self._quadfit_plot)
+        with timers.span("aggregate"):
+            aggregate.summarize_all(phrase_to_trc, phrase_to_telo, cfg.input_trc(),
+                                    log=self.log, plot_fn_for_phrase=self._quadfit_plot)
         self.log("All telomere found, have a nice day.")
         return results
 
 
 def make_engine(cfg: TopsicleConfig, log: Optional[writer.RunLog] = None,
-                device: str | torch.device = "cuda"):
+                device: str | torch.device = "cuda", timers: Optional[StageTimers] = None):
     """Engine factory honoring cfg.engine ('jax', the reference CLI's name
-    for the device engine: here TorchEngine on `device`; or 'oracle')."""
+    for the device engine: here TorchEngine on `device`, recording into
+    `timers`; or 'oracle')."""
     if cfg.engine == "oracle":
         from topsicle_tpu_torch.oracle import OracleEngine
 
         return OracleEngine(cfg, log=log)
-    return TorchEngine(cfg, log=log, device=device)
+    return TorchEngine(cfg, log=log, device=device, timers=timers)

@@ -1,4 +1,4 @@
-"""Runtime utilities: stage profiling, throughput counters, run
+"""Runtime utilities: the span and counter recorder, run
 manifest, bounded read-ahead, the compile cache of the native libraries
 (compile_cache)."""
 

@@ -1,53 +1,119 @@
-"""Per-stage timers and throughput counters.
+"""The port's one span-and-counter recorder, and the optional trace of a run.
 
 The reference's only instrumentation is a wall-clock line and timestamped
-prints (main.py:316,340-342; SURVEY.md §5).  Here every engine stage is
-timed, read/bp counters accumulate, and `torch.profiler` traces can wrap
-a run for kernel-level analysis."""
+prints (main.py:316,340-342; SURVEY.md §5).  Here the run is cut into named
+spans (a name, a start and an end on `time.perf_counter`, and the span open
+around it) and counters, kept in one StageTimers a job:
+
+  - per-name totals (seconds, calls) and counters are always kept; a span
+    costs two clock reads and a dict update;
+  - while a torch.profiler runs (`torch.autograd._profiler_enabled()`),
+    each span also opens `record_function("stage.<name>")`, so the spans
+    share the device trace's clock, and is kept as a Span record.  With no
+    profiler running no `record_function` is entered.
+
+Spans are opened on the thread that drives the device; counters may be
+added from any thread (the readers count on theirs).  `trace_context` wraps
+a region in a torch.profiler trace: the CLI's whole job (--traceDir)."""
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
+
+import torch
+
+# The stages of the `stages:` line (portbench's stage shares read it)
+STAGES = ("step1", "step2", "subset")
+
+
+class Span:
+    """One span recorded while a profiler ran: name, start and end
+    (`time.perf_counter` seconds), and the span open around it (None at
+    the top)."""
+
+    __slots__ = ("name", "start", "end", "parent")
+
+    def __init__(self, name: str, start: float, parent: Optional["Span"]):
+        self.name = name
+        self.start = start
+        self.end = start
+        self.parent = parent
 
 
 class StageTimers:
-    """Accumulating wall-clock timers plus read/bp counters."""
+    """Span totals, counters and, under a profiler, span records."""
 
     def __init__(self) -> None:
         self.seconds: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
-        self.reads = 0
-        self.bases = 0
-        self._t0 = time.time()
+        self.counters: Dict[str, float] = defaultdict(int)
+        self.records: List[Span] = []
+        self._open: List[Span] = []
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
 
     @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t = time.time()
-        try:
-            yield
-        finally:
-            self.seconds[name] += time.time() - t
-            self.calls[name] += 1
+    def span(self, name: str) -> Iterator[None]:
+        """Time a region under `name`."""
+        if not torch.autograd._profiler_enabled():
+            t = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.seconds[name] += time.perf_counter() - t
+                self.calls[name] += 1
+            return
+        with torch.autograd.profiler.record_function(f"stage.{name}"):
+            rec = Span(name, time.perf_counter(), self._open[-1] if self._open else None)
+            self._open.append(rec)
+            try:
+                yield
+            finally:
+                rec.end = time.perf_counter()
+                self._open.pop()
+                self.records.append(rec)
+                self.seconds[name] += rec.end - rec.start
+                self.calls[name] += 1
 
-    def count(self, reads: int = 0, bases: int = 0) -> None:
-        self.reads += reads
-        self.bases += bases
+    def stage(self, name: str):
+        """One of the three stages of the `stages:` line (STAGES)."""
+        return self.span(name)
+
+    def add(self, name: str, value=1) -> None:
+        with self._lock:
+            self.counters[name] += value
 
     def summary(self) -> str:
-        total = time.time() - self._t0
+        """The `stages:` line: the three stages, the wall since the
+        recorder was made, and the input's reads and bases over it."""
+        total = time.perf_counter() - self._t0
         parts = [
             f"{name}={self.seconds[name]:.2f}s/{self.calls[name]}x"
-            for name in sorted(self.seconds)
+            for name in STAGES if name in self.calls
         ]
+        reads, bases = self.counters.get("reads.in", 0), self.counters.get("bases.in", 0)
         tp = ""
-        if self.bases:
-            tp = (f"; {self.reads} reads, {self.bases/1e6:.1f} Mbp, "
-                  f"{self.bases/total/1e6:.1f} Mbp/s")
+        if bases:
+            tp = (f"; {reads} reads, {bases/1e6:.1f} Mbp, "
+                  f"{bases/total/1e6:.1f} Mbp/s")
         return f"stages: {', '.join(parts)}; wall {total:.2f}s{tp}"
+
+    def spans_line(self) -> str:
+        """`spans: <name>=<s>s/<n>x, ...`, every span by name."""
+        return "spans: " + ", ".join(
+            f"{name}={self.seconds[name]:.3f}s/{self.calls[name]}x"
+            for name in sorted(self.calls))
+
+    def counters_line(self) -> str:
+        """`counters: <name>=<value>, ...`, seconds to 3 decimals."""
+        return "counters: " + ", ".join(
+            f"{name}={v:.3f}" if isinstance(v, float) else f"{name}={v}"
+            for name, v in sorted(self.counters.items()))
 
 
 @contextlib.contextmanager
