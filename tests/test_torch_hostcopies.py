@@ -324,16 +324,57 @@ def test_native_source_is_a_copy():
     """The port's C++ reader is the original with counters added, which
     the run log's reader and subset counters need (the input's records,
     bases and short records; the subset writer's seconds re-reading the
-    input): every line of the original is there, in order, but the three
-    the counters replace, and the lines it adds hold no control flow
-    but the counters' own.  test_native_reader_block_for_block holds its
-    blocks to the original's."""
+    input), and with what a subset file needs kept from the first parse
+    (keep_records: qualities written beside the codes, headers, plain
+    flags, raw bases and first-token hashes; tsio_kept, tsio_take,
+    tsio_repeated, tsio_token_hash and tsio_emit): every line of the
+    original is there, in order, but the three the counters replace, and
+    the lines it adds hold no control flow but those two additions' own.
+    test_native_reader_block_for_block holds its blocks to the
+    original's."""
     replaced = {"    if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) continue;",
                 "                    const char* ids_joined, int fastq_out) {",
                 "  while (rr.next(rec)) {"}
-    flow = ["    } else {",
+    flow = [  # fnv1a, token_hash, keep_record
+            "  for (size_t i = 0; i < n; ++i) h = (h ^ static_cast<unsigned char>(s[i])) "
+            "* 1099511628211ull;",
+            "  return h;",
+            '  return fnv1a(header.data(), std::min(header.find_first_of(" \\t"), '
+            "header.size()));",
+            "  for (size_t i = 0; i < rec.seq.size(); ++i) bad |= (codes[i] & 0xFC) | "
+            "(rec.seq[i] & 0x20);",
+            # tsio_next
+            "    } else {",
+            "      if (r->keep) r->token_hashes.push_back(token_hash(rec.header));",
             "      if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) {",
             "        continue;",
+            "    if (r->keep) keep_record(r, rec, codes + code_pos - rec.seq.size(),",
+            # tsio_kept, tsio_take
+            "  for (const std::string& raw : r->raws) out[1] += "
+            "static_cast<int64_t>(raw.size());",
+            "  return static_cast<int64_t>(r->plain.size());",
+            "  for (size_t i = 0; i < r->plain.size(); ++i) {",
+            # tsio_repeated, tsio_token_hash
+            "  if (!r->hashes_sorted) std::sort(h.begin(), h.end());",
+            "  for (size_t i = 1; i < h.size(); ++i) {",
+            "    if (h[i] != h[i - 1] || (i > 1 && h[i - 1] == h[i - 2])) continue;",
+            "    if (n < cap) out[n] = h[i];",
+            "  return n;",
+            "  return fnv1a(token, static_cast<size_t>(n));",
+            # tsio_emit
+            "  for (int64_t k = 0; k < n; ++k) {",
+            "    if ((p - out) + hlen + 2 * len + 6 > out_cap) return -1;",
+            "      if (!plain[i]) {",
+            "        return;",
+            "      for (int64_t j = at + from; j < at + from + count; ++j) *p++ = "
+            "kBases[codes[j]];",
+            "    if (fastq_out) {",
+            "      if (quals) memcpy(p, quals + at, len);",
+            "      else memset(p, 'I', len);",
+            "      continue;",
+            "    for (int64_t j = 0; j < len; j += 60) {",
+            "  return p - out;",
+            # tsio_subset's clock
             "  while (true) {",
             "    if (!more) break;",
             "  if (stats) stats[0] = std::chrono::duration<double>(reading).count();"]

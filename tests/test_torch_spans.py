@@ -33,7 +33,7 @@ PARENT = {"job": None, "setup": "job", "model": "job", "unit": "job", "emit": "j
           "step2.pack": "step2", "step2.launch": "step2", "step2.wait": "step2"}
 READERS = ["span_share.reader_wait", "span_share.setup", "span_share.output",
            "span_share.unspanned", "span_share.device_wait", "reader.mbp_per_busy_s",
-           "step2.useful_share", "subset.reread_share"]
+           "step2.useful_share", "subset.reread_share", "subset.kept_share"]
 MIN_LEN = 9000
 
 
@@ -165,17 +165,29 @@ def test_spans_nest_in_the_trace(cli_runs):
     assert job.start <= phases[0][0] and phases[-1][1] <= job.end
 
 
-@pytest.mark.parametrize("phrases,cache_mb", [([5], None), ([4, 5], None), ([4, 5], "0")],
-                         ids=["k5", "k4-5-cached", "k4-5-parsed-again"])
+@pytest.mark.parametrize("phrases,cache_mb,repeated",
+                         [([5], None, False), ([4, 5], None, False), ([4, 5], "0", False),
+                          ([5], None, True)],
+                         ids=["k5", "k4-5-cached", "k4-5-parsed-again", "k5-repeated-id"])
 @pytest.mark.parametrize("native_io", [False, True], ids=["python", "native"])
 def test_reader_counters_match_input_and_csv(synthetic, tmp_path, monkeypatch, native_io,
-                                             phrases, cache_mb):
+                                             phrases, cache_mb, repeated):
     """The input is counted once a run, whether a later phrase replays it
-    from the block cache or, with the cache off, parses it again."""
+    from the block cache or, with the cache off, parses it again.  The
+    C++ reader's subset comes from the first parse; a short record that
+    repeats a passing read's id (`repeated`) makes the writer read the
+    input again."""
     if cache_mb is not None:
         monkeypatch.setenv("TOPSICLE_BLOCK_CACHE_MB", cache_mb)
+    if repeated:
+        data = tmp_path / "in" / "synthetic.fastq.gz"
+        data.parent.mkdir()
+        with gzip.open(synthetic, "rb") as src, gzip.open(data, "wb") as dst:
+            dst.write(src.read() + b"@read0 short, same id\nACGT\n+\nIIII\n")
+        synthetic = data
     timers = StageTimers()
-    cfg = TopsicleConfig(input_dir=str(synthetic), output_dir=str(tmp_path), pattern="CCCTAAA",
+    cfg = TopsicleConfig(input_dir=str(synthetic), output_dir=str(tmp_path / "out"),
+                         pattern="CCCTAAA",
                          slide=6, batch_size=8, native_io=native_io, min_seq_length=MIN_LEN,
                          telophrase=phrases)
     engine = TorchEngine(cfg, device="cpu", timers=timers)
@@ -185,12 +197,17 @@ def test_reader_counters_match_input_and_csv(synthetic, tmp_path, monkeypatch, n
     c = timers.counters
     assert timers.calls["unit"] == len(phrases)
     assert (c["reads.in"], c["bases.in"], c["reads.short"]) == (records, bases, short)
-    assert c["reads.passed"] == _csv_rows(str(tmp_path)) > 0
+    assert c["reads.passed"] == _csv_rows(str(tmp_path / "out")) > 0
     assert 0 < c["step2.bases_work"] <= c["step2.bases_launched"]
     assert c["step2.bases_launched"] % (8 * cfg.static_scan_length()) == 0
     assert c["reader.busy_s"] > 0
-    assert ("subset.reread_s" in c) == native_io     # the C++ writer's clock
-    if native_io:
+    # one file: its subset is written in the first phrase, found in the second
+    kept = native_io and not repeated
+    assert (c.get("subset.kept_files", 0), c.get("subset.reread_files", 0)) == \
+        ((1, 0) if kept else (0, 1))
+    # the C++ writer's clock, where it re-reads
+    assert ("subset.reread_s" in c) == (native_io and repeated)
+    if native_io and repeated:
         assert 0 < c["subset.reread_s"] <= timers.seconds["subset"]
 
 

@@ -7,6 +7,9 @@
 // pass, delivering (read id, base codes) batches through a C ABI that
 // numpy/ctypes can consume zero-copy.  Also provides the subset-file
 // writer (Biopython-compatible formatting: bare '+', 60-column FASTA).
+// With keep_records, a reader also keeps what that file needs of each
+// read it delivers (its quality beside its codes; tsio_take), so the file
+// can be written from the first parse (tsio_emit) instead of a second.
 //
 // Build: g++ -O3 -std=c++17 -fPIC -shared tsio.cc -o _tsio.so -lz
 //
@@ -15,6 +18,7 @@
 
 #include <zlib.h>
 
+#include <algorithm>
 #include <chrono>
 #include <cstdint>
 #include <cstdio>
@@ -196,12 +200,48 @@ struct Reader {
   bool has_pending = false;
   // every record parsed, its bases, and those at or under min_len
   int64_t records = 0, bases = 0, short_records = 0;
+  // keep_records (tsio_next): what the subset file needs of each read
+  // delivered since the last tsio_take but its quality, which tsio_next
+  // writes out, and a hash of every record's first token (tsio_repeated)
+  bool keep = false;
+  std::string headers;
+  std::vector<int64_t> header_ends;
+  std::vector<std::string> raws;  // moved out of their records
+  std::vector<uint8_t> plain;
+  std::vector<uint64_t> token_hashes;
+  bool hashes_sorted = false;
   explicit Reader(const char* path, int64_t ml) : rr(path), min_len(ml) {}
 };
 
 std::string first_token(const std::string& header) {
   size_t end = header.find_first_of(" \t");
   return end == std::string::npos ? header : header.substr(0, end);
+}
+
+// FNV-1a, 64 bits.
+uint64_t fnv1a(const char* s, size_t n) {
+  uint64_t h = 14695981039346656037ull;
+  for (size_t i = 0; i < n; ++i) h = (h ^ static_cast<unsigned char>(s[i])) * 1099511628211ull;
+  return h;
+}
+
+// The hash of first_token(header).
+uint64_t token_hash(const std::string& header) {
+  return fnv1a(header.data(), std::min(header.find_first_of(" \t"), header.size()));
+}
+
+// Keeps what the subset file needs of a delivered read whose codes start
+// at codes: its quality, written at qual, and its header, whether it is
+// plain (every base an uppercase A, C, G or T, so "ACGT"[codes] is its
+// sequence) and, where it is not, its sequence.
+void keep_record(Reader* r, Record& rec, const uint8_t* codes, char* qual) {
+  memcpy(qual, rec.qual.data(), rec.qual.size());
+  r->headers += rec.header;
+  r->header_ends.push_back(static_cast<int64_t>(r->headers.size()));
+  uint8_t bad = 0;  // a code past T, or a lowercase letter
+  for (size_t i = 0; i < rec.seq.size(); ++i) bad |= (codes[i] & 0xFC) | (rec.seq[i] & 0x20);
+  r->plain.push_back(bad == 0);
+  r->raws.push_back(bad ? std::move(rec.seq) : std::string());
 }
 
 }  // namespace
@@ -229,9 +269,11 @@ int tsio_format(void* handle) {
 // pending read is preserved).
 int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
                   int64_t* read_offsets, char* ids, int64_t ids_cap,
+                  int keep_records, char* quals,
                   int64_t* id_offsets, int64_t max_reads) {
   Reader* r = static_cast<Reader*>(handle);
   int64_t n = 0, code_pos = 0, id_pos = 0;
+  r->keep = keep_records != 0;
   read_offsets[0] = 0;
   id_offsets[0] = 0;
   Record rec;
@@ -245,6 +287,7 @@ int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
     } else {
       ++r->records;
       r->bases += static_cast<int64_t>(rec.seq.size());
+      if (r->keep) r->token_hashes.push_back(token_hash(rec.header));
       if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) {
         ++r->short_records;
         continue;
@@ -260,6 +303,8 @@ int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
     for (char c : rec.seq) codes[code_pos++] = kLut.t[(unsigned char)c];
     memcpy(ids + id_pos, id.data(), id.size());
     id_pos += id.size();
+    if (r->keep) keep_record(r, rec, codes + code_pos - rec.seq.size(),
+                             quals + code_pos - rec.seq.size());
     ++n;
     read_offsets[n] = code_pos;
     id_offsets[n] = id_pos;
@@ -274,6 +319,109 @@ void tsio_stats(void* handle, int64_t* out) {
   out[0] = r->records;
   out[1] = r->bases;
   out[2] = r->short_records;
+}
+
+// With keep_records: the reads kept since the last tsio_take.  out[0]
+// gets their header bytes, out[1] the sequence bytes of those that are
+// not plain; returns how many reads.
+int64_t tsio_kept(void* handle, int64_t* out) {
+  const Reader* r = static_cast<const Reader*>(handle);
+  out[0] = static_cast<int64_t>(r->headers.size());
+  out[1] = 0;
+  for (const std::string& raw : r->raws) out[1] += static_cast<int64_t>(raw.size());
+  return static_cast<int64_t>(r->plain.size());
+}
+
+// Copies the reads kept since the last tsio_take into the caller's
+// arrays, sized by tsio_kept, and frees them: headers with header_offs
+// (n + 1), plain (n), raw with raw_offs (n + 1; a plain read's is empty).
+void tsio_take(void* handle, char* headers, int64_t* header_offs, uint8_t* plain,
+               char* raw, int64_t* raw_offs) {
+  Reader* r = static_cast<Reader*>(handle);
+  memcpy(headers, r->headers.data(), r->headers.size());
+  header_offs[0] = raw_offs[0] = 0;
+  for (size_t i = 0; i < r->plain.size(); ++i) {
+    header_offs[i + 1] = r->header_ends[i];
+    plain[i] = r->plain[i];
+    memcpy(raw + raw_offs[i], r->raws[i].data(), r->raws[i].size());
+    raw_offs[i + 1] = raw_offs[i] + static_cast<int64_t>(r->raws[i].size());
+  }
+  r->headers.clear();
+  r->header_ends.clear();
+  r->raws.clear();
+  r->plain.clear();
+}
+
+// With keep_records, at the end of the input: the hashes of the first
+// tokens that more than one record had (short records too), up to cap of
+// them into out; returns how many there are.  Sorts the hashes once.
+int64_t tsio_repeated(void* handle, uint64_t* out, int64_t cap) {
+  Reader* r = static_cast<Reader*>(handle);
+  std::vector<uint64_t>& h = r->token_hashes;
+  if (!r->hashes_sorted) std::sort(h.begin(), h.end());
+  r->hashes_sorted = true;
+  int64_t n = 0;
+  for (size_t i = 1; i < h.size(); ++i) {
+    if (h[i] != h[i - 1] || (i > 1 && h[i - 1] == h[i - 2])) continue;
+    if (n < cap) out[n] = h[i];
+    ++n;
+  }
+  return n;
+}
+
+// The hash tsio_repeated gives a first token of n bytes.
+uint64_t tsio_token_hash(const char* token, int64_t n) {
+  return fnv1a(token, static_cast<size_t>(n));
+}
+
+// Formats reads idx[0..n) of a kept block as tsio_subset does: FASTQ
+// (fastq_out: '@' header, sequence, '+', the quality or as many 'I's)
+// or FASTA ('>' header, the sequence in 60-column lines).  A plain read's
+// sequence is "ACGT"[codes], another's its raw bytes; quals is null where
+// the input has none.  Returns the bytes written to out, or -1 where they
+// would pass out_cap.
+int64_t tsio_emit(const uint8_t* codes, const int64_t* read_offsets,
+                  const char* headers, const int64_t* header_offs,
+                  const char* quals, const uint8_t* plain, const char* raw,
+                  const int64_t* raw_offs, const int64_t* idx, int64_t n,
+                  int fastq_out, char* out, int64_t out_cap) {
+  static const char kBases[4] = {'A', 'C', 'G', 'T'};
+  char* p = out;
+  for (int64_t k = 0; k < n; ++k) {
+    const int64_t i = idx[k];
+    const int64_t at = read_offsets[i], len = read_offsets[i + 1] - at;
+    const int64_t hlen = header_offs[i + 1] - header_offs[i];
+    // FASTQ's bytes; FASTA's 60-column lines take no more
+    if ((p - out) + hlen + 2 * len + 6 > out_cap) return -1;
+    // the sequence's bases [from, from + count) at p
+    auto put = [&](int64_t from, int64_t count) {
+      if (!plain[i]) {
+        memcpy(p, raw + raw_offs[i] + from, count);
+        p += count;
+        return;
+      }
+      for (int64_t j = at + from; j < at + from + count; ++j) *p++ = kBases[codes[j]];
+    };
+    *p++ = fastq_out ? '@' : '>';
+    memcpy(p, headers + header_offs[i], hlen);
+    p += hlen;
+    *p++ = '\n';
+    if (fastq_out) {
+      put(0, len);
+      memcpy(p, "\n+\n", 3);
+      p += 3;
+      if (quals) memcpy(p, quals + at, len);
+      else memset(p, 'I', len);
+      p += len;
+      *p++ = '\n';
+      continue;
+    }
+    for (int64_t j = 0; j < len; j += 60) {
+      put(j, std::min<int64_t>(60, len - j));
+      *p++ = '\n';
+    }
+  }
+  return p - out;
 }
 
 void tsio_close(void* handle) { delete static_cast<Reader*>(handle); }

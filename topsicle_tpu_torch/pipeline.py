@@ -74,6 +74,67 @@ class _Passer:
                                  # control word needs no batch assembly
 
 
+class _KeptSubset:
+    """A unit's subset file written from its first parse: the passing
+    records of each block, formatted from the Records the C++ reader kept
+    beside its codes, appended to <subset>.tmp in input order.  The
+    parse sets `repeated` (the hashes of the ids more than one record of
+    the input had) when it reaches the end of the input.  The file is
+    exactly the re-read's (write_subset_native) where each passing id
+    names one record; `close` says whether it is."""
+
+    def __init__(self, out_path: str, fastq_out: bool):
+        self.tmp_path = out_path + ".tmp"
+        self.fastq_out = fastq_out
+        self.repeated: Optional[set] = None
+        self.fh = None
+        self.ok = True
+
+    def open(self) -> None:
+        try:
+            self.fh = open(self.tmp_path, "wb")
+        except OSError:     # the re-read meets it again and reports it
+            self.ok = False
+
+    def add(self, blk, hits: np.ndarray) -> None:
+        """Append the records of reads `hits` of `blk`."""
+        from topsicle_tpu_torch.native.loader import format_records
+
+        if not self.ok:
+            return
+        if blk.records is None:     # a block the reader kept nothing of
+            self.ok = False
+            return
+        try:
+            self.fh.write(format_records(blk, hits, self.fastq_out))
+        except OSError:
+            self.ok = False
+
+    def close(self, hit_ids: set) -> bool:
+        """Close the file; whether it is complete and no passing id is
+        repeated in the input (else the caller re-reads)."""
+        from topsicle_tpu_torch.native.loader import token_hash
+
+        self._close_fh()
+        if not self.ok or self.repeated is None:
+            return False
+        return not (self.repeated and any(token_hash(i) in self.repeated for i in hit_ids))
+
+    def discard(self) -> None:
+        """Close the file and remove what is left of it."""
+        self._close_fh()
+        if os.path.exists(self.tmp_path):
+            os.remove(self.tmp_path)
+
+    def _close_fh(self) -> None:
+        if self.fh is not None:
+            fh, self.fh = self.fh, None
+            try:
+                fh.close()
+            except OSError:
+                self.ok = False
+
+
 class TorchEngine:
     """The engine on torch devices: 'cuda' computes on every card this
     process sees (batches split by rows when there are several), 'cpu'
@@ -224,13 +285,14 @@ class TorchEngine:
             raise RuntimeError("native_io requested but the C++ IO library is unavailable")
         return ok
 
-    def _iter_blocks(self, path: str):
+    def _iter_blocks(self, path: str, subset: Optional[_KeptSubset] = None):
         """Blocks of up to batch_size eligible reads, with the
         encoded-block cache wrapped around the raw parse: a
         multi-phrase run's later phrases replay the first parse's
         blocks from disk (~10x faster than re-inflating), and the
         cache entry only becomes visible after a COMPLETE successful
-        parse (a failed file caches nothing)."""
+        parse (a failed file caches nothing).  A parse for `subset`
+        keeps each block's Records (the cache stores none)."""
         from topsicle_tpu_torch.io import blockcache
         from topsicle_tpu_torch.native.loader import Block
 
@@ -262,7 +324,7 @@ class TorchEngine:
                 cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size,
                 self._bc_reserve, self._bc_refund)
         try:
-            for blk in self._parse_blocks(path):
+            for blk in self._parse_blocks(path, subset):
                 if bc is not None and bc.active:
                     bc.add(blk.ids, blk.codes, blk.offs)
                 yield blk
@@ -276,7 +338,7 @@ class TorchEngine:
             if bc is not None:   # error or abandoned generator
                 bc.abandon()
 
-    def _parse_blocks(self, path: str):
+    def _parse_blocks(self, path: str, subset: Optional[_KeptSubset] = None):
         """Raw parse: blocks of up to batch_size eligible reads (len >
         minSeqLength) — one flat code array + offsets per block, via the
         C++ loader when available (gzip inflate + parse + encode in one
@@ -291,14 +353,15 @@ class TorchEngine:
         and the seconds spent producing its blocks (`reader.busy_s`: from
         resuming to yielding, so no wait to hand a block on).  A later
         phrase's replay from the block cache or parse again is in
-        neither."""
+        neither.  With `subset`, the C++ reader keeps each block's Records
+        and, at the end of the input, sets subset.repeated."""
         first = path not in self._parsed
         self._parsed.add(path)
         counts = [0, 0, 0]     # records, bases, records at or under minSeqLength
         busy = 0.0
         t = time.perf_counter()
         try:
-            for blk in self._parse_input(path, counts):
+            for blk in self._parse_input(path, counts, subset):
                 busy += time.perf_counter() - t
                 t = None
                 yield blk
@@ -311,7 +374,8 @@ class TorchEngine:
                                    (*counts, busy)):
                     self.timers.add(name, v)
 
-    def _parse_input(self, path: str, counts: List[int]):
+    def _parse_input(self, path: str, counts: List[int],
+                     subset: Optional[_KeptSubset] = None):
         """_parse_blocks' parse, with the input's [records, bases, short
         records] added to `counts`."""
         from topsicle_tpu_torch.native.loader import Block
@@ -322,9 +386,12 @@ class TorchEngine:
             if self._use_native():
                 from topsicle_tpu_torch.native import NativeReader
 
-                rd = NativeReader(path, cfg.min_seq_length, batch_reads=Bblk)
+                rd = NativeReader(path, cfg.min_seq_length, batch_reads=Bblk,
+                                  keep_records=subset is not None)
                 try:
                     yield from rd.iter_blocks()
+                    if subset is not None:
+                        subset.repeated = rd.repeated()
                 finally:
                     counts[:] = rd.stats()
                     rd.close()
@@ -353,7 +420,7 @@ class TorchEngine:
                 zlib.error) as e:
             raise reader.InputFileError(path, e) from e
 
-    def _read_source(self, path: str):
+    def _read_source(self, path: str, subset: Optional[_KeptSubset] = None):
         """Eager background parse/encode of one file, bounded by ~2
         blocks (= ~2 device batches) of reads (utils.prefetch.Prefetcher
         starts immediately, so sources created ahead overlap the current
@@ -361,10 +428,23 @@ class TorchEngine:
         reader pool)."""
         from topsicle_tpu_torch.utils.prefetch import Prefetcher
 
-        return Prefetcher(self._iter_blocks(path), depth=2)
+        return Prefetcher(self._iter_blocks(path, subset), depth=2)
+
+    def _unit_source(self, path: str):
+        """A files-mode unit's source and the subset file it writes from
+        the first parse: a _KeptSubset where the C++ reader runs, the
+        subset does not exist yet and no --read_check is given, else
+        None (the subset writer re-reads the input)."""
+        cfg = self.cfg
+        subset = None
+        if cfg.read_check is None and self._use_native():
+            out_path = writer.subset_path(cfg.output_dir, path, cfg.min_cutoff())
+            if not os.path.exists(out_path):
+                subset = _KeptSubset(out_path, reader.extension_format(path) == "fastq")
+        return self._read_source(path, subset), subset
 
     def _step1_stream(self, path: str, kmers: Sequence[str], model,
-                      source=None, timers=None):
+                      source=None, timers=None, subset: Optional[_KeptSubset] = None):
         """Streaming step 1: a generator of _Passer in input order, with
         batches kept in flight — the device computes block i while the
         host parses/encodes block i+1.  One block = one device batch;
@@ -374,9 +454,11 @@ class TorchEngine:
         round 3's materialized list) lets the caller pipeline step 2
         behind step 1 with O(batch) peak memory: a monolithic
         whole-genome file no longer accumulates every passing read's
-        tail slice (~20 kB each) before the first boundary runs.  Spans
-        (`timers`): reader_wait, and step1 with step1.launch, step1.wait
-        and step1.select; none is open across a yield."""
+        tail slice (~20 kB each) before the first boundary runs.  With
+        `subset`, each block's passing records go to the subset file
+        after its selection, in a subset span of their own.  Spans
+        (`timers`): reader_wait, step1 with step1.launch, step1.wait and
+        step1.select, and subset; none is open across a yield."""
         cfg = self.cfg
         cutoff = cfg.min_cutoff()
         B = self._B
@@ -393,7 +475,8 @@ class TorchEngine:
                 keep, sel_j, fwd, trc = self._select_hits(counts, cutoff)
                 offs = blk.offs
                 out = []
-                for i in np.nonzero(keep)[0]:
+                hits = np.nonzero(keep)[0]
+                for i in hits:
                     i = int(i)
                     codes = blk.codes[offs[i]:offs[i + 1]]
                     tail = "forward" if fwd[i] else "reverse"
@@ -409,6 +492,15 @@ class TorchEngine:
                             int(offs[i + 1] - offs[i]),
                         )
                     )
+            return blk, hits, out
+
+        def passers(drained):
+            """A drained block's passers, its records in the subset file
+            first."""
+            blk, hits, out = drained
+            if subset is not None:
+                with timers.stage("subset"):
+                    subset.add(blk, hits)
             return out
 
         # parse/encode ahead on a reader thread (bounded by ~2 blocks)
@@ -434,12 +526,13 @@ class TorchEngine:
                     pending.append(
                         (order, blk, model.step1_counts_launch(ends, ends_len)))
                 order += n
-                drained = drain_one() if len(pending) > depth else []
-            yield from drained
+                drained = drain_one() if len(pending) > depth else None
+            if drained is not None:
+                yield from passers(drained)
         while pending:
             with timers.stage("step1"):
                 drained = drain_one()
-            yield from drained
+            yield from passers(drained)
 
     def _step1_file(self, path: str, kmers: Sequence[str], model,
                     source=None, timers=None) -> List[_Passer]:
@@ -448,7 +541,12 @@ class TorchEngine:
         return list(self._step1_stream(path, kmers, model, source=source, timers=timers))
 
     # -- subset emission ---------------------------------------------------
-    def _write_subset(self, path: str, hit_ids: set) -> None:
+    def _write_subset(self, path: str, hit_ids: set,
+                      subset: Optional[_KeptSubset] = None) -> None:
+        """Put the subset file of `path` in place: the one `subset` wrote
+        from the first parse where it is exact, else the records of
+        `hit_ids` read again from the input.  Counters subset.kept_files
+        and subset.reread_files say which."""
         cfg = self.cfg
         out_path = writer.subset_path(cfg.output_dir, path, cfg.min_cutoff())
         if os.path.exists(out_path):
@@ -460,14 +558,18 @@ class TorchEngine:
         # silently reuse as complete (the exists-check above)
         tmp_path = out_path + ".tmp"
         try:
-            if self._use_native():
+            if subset is not None and subset.close(hit_ids):
+                self.timers.add("subset.kept_files")
+            elif self._use_native():
                 from topsicle_tpu_torch.native import write_subset_native
 
+                self.timers.add("subset.reread_files")
                 stats: Dict[str, float] = {}
                 write_subset_native(path, tmp_path, sorted(hit_ids), fmt == "fastq",
                                     stats=stats)
                 self.timers.add("subset.reread_s", stats["reread_s"])
             else:
+                self.timers.add("subset.reread_files")
                 with open(tmp_path, "w") as fh:
                     for rec in reader.parse_records(path):
                         if rec.id in hit_ids:
@@ -656,18 +758,23 @@ class TorchEngine:
 
     # -- one (file, phrase) unit ---------------------------------------------
     def _run_unit(self, path: str, phrase: int, kmers: Sequence[str], model, src,
-                  timers):
+                  timers, subset: Optional[_KeptSubset] = None):
         """Step 1 -> subset file -> step 2 (and the per-read extras of
         --rawcountpattern/--plot) for one unit.  Returns its reads'
         results in input order, or None when the input is unreadable:
         the unit then stays un-done for --resume, and the extras files
-        its early batches wrote are removed."""
+        its early batches wrote are removed.  `subset` (from
+        _unit_source) writes the subset file as step 1 goes; no .tmp of
+        it outlives the unit."""
         cfg = self.cfg
         self.log("subsetting raw dataset based on TRC cutoff")
         lbl = writer.file_label(path)
         hit_ids: List[str] = []
         unit_rows: List[ReadResult] = []
         image_num = 1
+        if subset is not None:
+            with timers.stage("subset"):
+                subset.open()
         try:
             if cfg.read_check is not None:
                 passers = self._step1_file(path, kmers, model, source=src, timers=timers)
@@ -683,7 +790,7 @@ class TorchEngine:
             else:
                 def tracked():
                     for p in self._step1_stream(path, kmers, model, source=src,
-                                                timers=timers):
+                                                timers=timers, subset=subset):
                         hit_ids.append(p.read_id)
                         yield p
                 stream = tracked()
@@ -698,13 +805,16 @@ class TorchEngine:
                     timers.add("reads.passed", len(group))
             if cfg.read_check is None:
                 with timers.stage("subset"):
-                    self._write_subset(path, set(hit_ids))
+                    self._write_subset(path, set(hit_ids), subset)
         except reader.InputFileError as e:
             self.log(f"ERROR: {e}; skipping this file")
             self._remove_unit_extras(phrase, image_num)
             return None
         finally:
             src.close()
+            if subset is not None:
+                with timers.stage("subset"):
+                    subset.discard()
         return unit_rows
 
     def _quadfit_plot(self, phrase: int):
@@ -1139,19 +1249,20 @@ class TorchEngine:
                     if kept(path, phrase):
                         continue
                     with timers.span("unit"):
-                        src = sources.pop(path, None) or self._read_source(path)
+                        src, subset = sources.pop(path, None) or self._unit_source(path)
                         j = todo_pos[path]
                         for q in todo[j + 1:j + 1 + ahead]:
                             if q not in sources:
-                                sources[q] = self._read_source(q)
-                        unit = self._run_unit(path, phrase, kmers, model, src, timers)
+                                sources[q] = self._unit_source(q)
+                        unit = self._run_unit(path, phrase, kmers, model, src, timers,
+                                              subset)
                     if unit is not None:
                         with timers.span("emit"):
                             emit(path, file_idx, phrase, unit)
             finally:
                 # abandoned read-ahead sources must not leave reader
                 # threads blocked on full queues holding file handles
-                for s in sources.values():
+                for s, _ in sources.values():
                     s.close()
             self.log("finished processing all reads")
         if self._bc_enabled and not dist:
