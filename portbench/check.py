@@ -23,7 +23,8 @@ CHECKS = {
     "step1_differ": ("reads on both sides whose end, k-mer or TRC (float64) differ", 0),
     "telo_differ": ("reads on both sides whose telomere length differs", 0),
     "csv_differ": ("jobs whose telolengths_all.csv bytes differ", 0),
-    "subset_differ": ("subset FASTQ files whose bytes differ or are missing", 0),
+    "subset_differ": ("subset FASTQ files missing or extra (every job), or whose bytes differ "
+                      "(the jobs whose files were kept)", 0),
     "aggregate_differ": ("jobs whose aggregate lines differ", 0),
 }
 
@@ -62,18 +63,31 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
-def job_outputs(out_dir: str, results) -> Outputs:
+def subset_names(out_dir: str) -> List[str]:
+    return [n for n in sorted(os.listdir(out_dir)) if SUBSET.search(n)]
+
+
+def job_outputs(out_dir: str, results, deleted=None) -> Outputs:
     """A finished CLI job's outputs: `results` is what the engine's run
     returned (objects with file_label, phrase, read_id, trc, telo_length,
-    kmer and tail)."""
+    kmer and tail).  `deleted` names the job's subset files that were
+    deleted unread: each is there, its bytes None (not compared)."""
     rows = [(r.phrase, r.file_label, r.read_id, r.trc, r.telo_length, r.kmer, r.tail)
             for r in results]
     with open(os.path.join(out_dir, "telolengths_all.csv"), "rb") as fh:
         csv_bytes = fh.read()
-    subsets = {n: sha256_file(os.path.join(out_dir, n))
-               for n in sorted(os.listdir(out_dir)) if SUBSET.search(n)}
+    subsets = {n: sha256_file(os.path.join(out_dir, n)) for n in subset_names(out_dir)}
+    subsets.update({n: None for n in deleted or ()})
     return Outputs(rows, csv_bytes, subsets,
                    aggregate_lines(os.path.join(out_dir, "topsicle_run.log")))
+
+
+def subsets_differing(want: Outputs, got: Outputs) -> List[str]:
+    """Subset files on one side only, or whose bytes differ where the
+    program's were kept."""
+    return [n for n in sorted(want.subsets.keys() | got.subsets.keys())
+            if n not in want.subsets or n not in got.subsets
+            or got.subsets[n] not in (None, want.subsets[n])]
 
 
 def compare(want: Outputs, got: Outputs) -> Dict[str, int]:
@@ -87,8 +101,7 @@ def compare(want: Outputs, got: Outputs) -> Dict[str, int]:
                             for k in both),
         "telo_differ": sum(wk[k][4] != gk[k][4] for k in both),
         "csv_differ": int(want.csv != got.csv),
-        "subset_differ": sum(want.subsets.get(n) != got.subsets.get(n)
-                             for n in want.subsets.keys() | got.subsets.keys()),
+        "subset_differ": len(subsets_differing(want, got)),
         "aggregate_differ": int(want.aggregate != got.aggregate),
     }
 
@@ -107,7 +120,7 @@ def first_difference(want: Outputs, got: Outputs) -> str:
             return f"aggregate line: program {b!r}, reference {a!r}"
     if want.csv != got.csv:
         return "csv bytes differ"
-    if want.subsets != got.subsets:
+    if subsets_differing(want, got):
         return f"subsets: program {got.subsets}, reference {want.subsets}"
     return "none"
 

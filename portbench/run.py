@@ -1,18 +1,22 @@
-"""The port's benchmark: one cell of BENCHMARK.json, run in one process.
+"""The port's benchmark: one cell of BENCHMARK.json.
 
     python portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell is a configuration (configs/<name>.json: the upstream deployment's
-CLI settings) under a traffic mix (mixes/<name>.json).  Set-up makes the
-cell's input files from --seed (gen/fastq.py, in child processes that run
-while torch is imported), loads the port and runs one warm-up job on a
-small input.  The window then runs `topsicle_tpu_torch.cli.main` in this
-process, one call a job over the same input directory with a fresh output
-directory each, back to back, and closes at the end of the first job that
-ends at or after --seconds.  After it the reference (reference/) works
-out what every job should have written and check.py compares; the last
-line of standard output is the result as JSON.  With --trace 1 the window
-runs under torch.profiler and the line carries the per-layer metrics
+CLI settings) under a traffic mix (mixes/<name>.json).  The command first
+makes the cell's input files and a small warm-up input from --seed
+(gen/fastq.py, a child process a file), then starts the measured process:
+this file again, handed the inputs with --inputs.  Its set-up (setup_s,
+from its own start) loads the port and runs one warm-up job.  The window
+then runs `topsicle_tpu_torch.cli.main` in that process, one call a job
+over the same input directory with a fresh output directory each, back to
+back, and closes at the end of the first job that ends at or after
+--seconds.  After it the reference (reference/) works out what every job
+should have written and check.py compares, every job (the subset files'
+bytes in a sample of the jobs drawn from the seed and in the last job;
+the others' are deleted in the window, once the next job has ended); the
+last line of standard output is the result as JSON.  With --trace 1 the window runs under
+torch.profiler and the line carries the per-layer metrics
 (metrics/<name>.py) instead of the end-to-end ones.
 
 --smoke runs the same on the CPU at a tiny size (the port's plain torch
@@ -30,6 +34,7 @@ import importlib.util
 import json
 import os
 import platform
+import random
 import resource
 import shutil
 import statistics
@@ -45,6 +50,8 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 CACHE = HERE / ".cache"
 FORBIDDEN = ("jax", "jaxlib", "flax", "topsicle_tpu")
+# the share of a window's jobs whose subset files are kept and compared
+SUBSET_SAMPLE = 0.25
 
 
 def since_process_start() -> float:
@@ -204,11 +211,44 @@ def load_reader(name: str):
     return mod.read
 
 
+def drop_subsets(out_dir: Path) -> tuple:
+    """Deletes a finished job's subset files: (their names, their bytes)."""
+    from portbench import check
+
+    if not out_dir.is_dir():
+        return [], 0
+    names, size = check.subset_names(str(out_dir)), 0
+    for n in names:
+        size += os.stat(out_dir / n).st_size
+        os.unlink(out_dir / n)
+    return names, size
+
+
 def forbidden_modules() -> list:
     return sorted({m for m in list(sys.modules) if m.split(".", 1)[0] in FORBIDDEN})
 
 
+def make_inputs(cfg_path: Path, mix_path: Path, seed: int, work: Path, smoke: bool) -> None:
+    """The cell's input directory (work/inputs) and the warm-up input
+    (work/warmup) from the seed: a generator process a file, all at once."""
+    files = load_json(mix_path)["files"]
+    gen = [sys.executable, str(HERE / "gen" / "fastq.py"), "--config", str(cfg_path),
+           "--mix", str(mix_path), "--seed", str(seed)] + (["--smoke"] if smoke else [])
+    children = [subprocess.Popen(gen + ["--warmup", str(work / "warmup")])]
+    try:
+        children += [subprocess.Popen(gen + ["--out", str(work / "inputs"), "--only", str(f)])
+                     for f in range(files)]
+        if any(c.wait() != 0 for c in children):
+            raise RuntimeError("an input generator failed")
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(description="The port's benchmark: one cell of BENCHMARK.json")
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
@@ -216,15 +256,38 @@ def main(argv=None) -> int:
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     p.add_argument("--smoke", action="store_true",
                    help="CPU check of the harness at a tiny size; no device metric")
+    p.add_argument("--inputs", default=None,
+                   help="the measured process: the directory make_inputs filled")
     a = p.parse_args(argv)
     if sys.path and sys.path[0] and Path(sys.path[0]).resolve() == HERE:
         sys.path[0] = str(ROOT)     # import portbench and the port from the checkout
     elif str(ROOT) not in sys.path:
         sys.path.insert(0, str(ROOT))
     cell, cfg_path, mix_path, e2e, per_layer = find_cell(a.workload)
-    cfg, mix = load_json(cfg_path), load_json(mix_path)
+    if a.inputs is not None:
+        return measure(a, cell, cfg_path, mix_path, e2e, per_layer, Path(a.inputs))
+    # the inputs are the harness's: made before the measured process starts,
+    # so that its set-up (setup_s) holds only the program's start
+    work = Path(tempfile.mkdtemp(prefix="portbench-", dir=os.environ.get("TMPDIR")))
+    try:
+        t = time.perf_counter()
+        make_inputs(cfg_path, mix_path, a.seed, work, a.smoke)
+        print("[portbench] inputs " + json.dumps({"made_s": time.perf_counter() - t,
+                                                  "done_at": time.time()}), flush=True)
+        return subprocess.run([sys.executable, str(HERE / "run.py"), *argv,
+                               "--inputs", str(work)]).returncode
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def measure(a, cell: dict, cfg_path: Path, mix_path: Path, e2e: list, per_layer: list,
+            work: Path) -> int:
+    """The measured process: set-up, the window, the check and the result
+    line, on the inputs in `work`; every job writes its outputs there too."""
+    cfg = load_json(cfg_path)
     cli = cfg["cli"]
-    split = {}
+    split = {"started_at": time.time() - since_process_start()}
+    inputs, warm = work / "inputs", work / "warmup"
 
     # every cache of the program inside the checkout, at fixed paths
     os.environ["TOPSICLE_COMPILE_CACHE"] = str(CACHE / "compile")
@@ -232,24 +295,12 @@ def main(argv=None) -> int:
     os.environ["TRITON_CACHE_DIR"] = str(CACHE / "triton")
     os.environ["CUDA_CACHE_PATH"] = str(CACHE / "nv")
     os.environ["USE_FLAX"] = "0"
-    work = Path(tempfile.mkdtemp(prefix="portbench-", dir=os.environ.get("TMPDIR")))
-    inputs, warm = work / "inputs", work / "warmup"
-    children = []
+    # the job's cores, as a batch scheduler allots them: the CLI's --threads
+    # default and torch's threads resolve from the affinity
+    if cfg.get("cores"):
+        os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:int(cfg["cores"])])
+    sampler = None
     try:
-        # inputs: one child a file and one for the warm-up input, started
-        # before torch is imported so that the two overlap
-        t_gen = time.perf_counter()
-        gen = [sys.executable, str(HERE / "gen" / "fastq.py"), "--config", str(cfg_path),
-               "--mix", str(mix_path), "--seed", str(a.seed)] + (["--smoke"] if a.smoke else [])
-        children.append(subprocess.Popen(gen + ["--warmup", str(warm)]))
-        children += [subprocess.Popen(gen + ["--out", str(inputs), "--only", str(f)])
-                     for f in range(mix["files"])]
-        warm_child = children[0]
-        # the job's cores, as a batch scheduler allots them: the CLI's
-        # --threads default and torch's threads resolve from the affinity
-        if cfg.get("cores"):
-            os.sched_setaffinity(0, sorted(os.sched_getaffinity(0))[:int(cfg["cores"])])
-
         t = time.perf_counter()
         import torch
         split["import_torch_s"] = time.perf_counter() - t
@@ -267,7 +318,6 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         from topsicle_tpu_torch import cli as port_cli
         from topsicle_tpu_torch import pipeline
-        from topsicle_tpu_torch.utils import profiling
         split["port_import_s"] = time.perf_counter() - t
 
         from portbench import check, devtrace, roofline
@@ -299,19 +349,10 @@ def main(argv=None) -> int:
             return rc, wall, captured[-1] if captured else None
 
         t = time.perf_counter()
-        if warm_child.wait() != 0:
-            raise RuntimeError("the warm-up input's generator failed")
-        split["warmup_input_wait_s"] = time.perf_counter() - t
-        t = time.perf_counter()
         rc, _, _ = job(warm, work / "warmup_out")
         if rc != 0:
             raise RuntimeError(f"the warm-up job exited {rc}")
         split["warmup_job_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        if any(c.wait() != 0 for c in children[1:]):
-            raise RuntimeError("an input generator failed")
-        split["input_wait_s"] = time.perf_counter() - t
-        split["inputs_ready_after_s"] = time.perf_counter() - t_gen
         gc.collect()
 
         # ---- the measured window ------------------------------------------
@@ -325,18 +366,17 @@ def main(argv=None) -> int:
         if a.trace and not a.smoke:
             from torch.profiler import ProfilerActivity, profile, record_function
 
-            stage = profiling.StageTimers.stage
-
-            @contextlib.contextmanager
-            def traced_stage(self, name):
-                with record_function(f"stage.{name}"), stage(self, name):
-                    yield
-            profiling.StageTimers.stage = traced_stage
             prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             prof.__enter__()
             span = record_function
         else:
             span = lambda name: contextlib.nullcontext()   # noqa: E731
+        # a job's subset files (47 MB a telo_rich job) are deleted once the
+        # next job has ended, seconds after they were written and before the
+        # page cache writes them out, except in a sample of the jobs drawn
+        # from the seed and in the last job; the others are compared by name
+        sample = random.Random(a.seed)
+        deleted_bytes, cleanup_s = 0, 0.0
         setup_s = since_process_start()
         rss.start()
         cpu0 = resource.getrusage(resource.RUSAGE_SELF)
@@ -348,7 +388,13 @@ def main(argv=None) -> int:
                 with span("portbench.job"):
                     rc, wall, results = job(inputs, work / f"job{n}")
                 jobs.append({"rc": rc, "wall_s": wall, "results": results,
-                             "out": work / f"job{n}"})
+                             "out": work / f"job{n}",
+                             "kept": sample.random() < SUBSET_SAMPLE, "deleted": None})
+                if n and not jobs[n - 1]["kept"]:
+                    t = time.perf_counter()
+                    jobs[n - 1]["deleted"], size = drop_subsets(jobs[n - 1]["out"])
+                    deleted_bytes += size
+                    cleanup_s += time.perf_counter() - t
                 if rc != 0 or time.perf_counter() - t_open >= a.seconds:
                     break
         if not a.smoke:
@@ -361,12 +407,12 @@ def main(argv=None) -> int:
         trace = None
         if prof is not None:
             prof.__exit__(None, None, None)
-            profiling.StageTimers.stage = stage
             trace_path = str(work / "trace.json")
             prof.export_chrome_trace(trace_path)
             del prof
             trace = devtrace.load(trace_path, str(HERE / "kernels.json"))
         smi_window = sampler.stop() if sampler is not None else {}
+        sampler = None
         mem_peak = torch.cuda.max_memory_allocated() if not a.smoke else 0
         pipeline.TorchEngine.run = engine_run
         gc.collect()
@@ -385,7 +431,7 @@ def main(argv=None) -> int:
         per_job, first = [], None
         for j in jobs:
             if j["rc"] == 0 and j["results"] is not None:
-                got = check.job_outputs(str(j["out"]), j["results"])
+                got = check.job_outputs(str(j["out"]), j["results"], j["deleted"])
                 per_job.append(check.compare(want, got))
                 if first is None and not check.verdict(per_job[-1]):
                     first = f"{j['out'].name}: {check.first_difference(want, got)}"
@@ -431,6 +477,8 @@ def main(argv=None) -> int:
             "job_s": walls, "job_s_min_median_max": [min(walls), statistics.median(walls),
                                                       max(walls)],
             "reference_s": ref_s, "compare_s": compare_s, "process_cpu_s": cpu_s,
+            "subsets_compared": [i for i, j in enumerate(jobs) if j["deleted"] is None],
+            "subset_mb_deleted": deleted_bytes / 1e6, "cleanup_s": cleanup_s,
             "stage_s_a_job": {n: [j["stages"].get(n, 0.0) for j in ok_jobs]
                               for n in stage_names}}))
         if trace is not None:
@@ -468,11 +516,8 @@ def main(argv=None) -> int:
         print(json.dumps(result))
         return 0
     finally:
-        for c in children:
-            if c.poll() is None:
-                c.kill()
-                c.wait()
-        shutil.rmtree(work, ignore_errors=True)
+        if sampler is not None:
+            sampler.stop()
 
 
 if __name__ == "__main__":

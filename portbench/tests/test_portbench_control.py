@@ -55,14 +55,19 @@ FAULTS = {"telo_altered": ("_step2_batches", _telo_altered),
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-def test_a_broken_path_is_not_correct(monkeypatch, fault):
+def test_a_broken_path_is_not_correct(monkeypatch, tmp_path, fault):
+    """The measured process's part of a run, in this process (the inputs
+    made first, as the command makes them)."""
     from topsicle_tpu_torch import pipeline
 
     attr, make = FAULTS[fault]
     monkeypatch.setattr(pipeline.TorchEngine, attr, make(pipeline))
+    argv = ["--workload", "athal_ont_k5.telo_rich", "--seed", "9", "--seconds", "0",
+            "--trace", "0", "--smoke"]
+    _, cfg_path, mix_path, _, _ = harness.find_cell(argv[1])
+    harness.make_inputs(cfg_path, mix_path, 9, tmp_path, smoke=True)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = harness.main(["--workload", "athal_ont_k5.telo_rich", "--seed", "9",
-                           "--seconds", "0", "--trace", "0", "--smoke"])
+        rc = harness.main(argv + ["--inputs", str(tmp_path)])
     assert rc == 0
     assert '"correct": false' in out.getvalue().strip().splitlines()[-1]
