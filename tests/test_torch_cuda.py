@@ -403,6 +403,69 @@ def test_greedy_kernels_match_plain(dev, pattern, kmers, w, slide, lean):
     assert torch.equal(t, tp) and torch.equal(has, hp) and has.any()
 
 
+# Launches whose dynamic shared memory stays under 48 KB but passes it with the
+# kernel's static part (a TileScratch of 1,344 B; the sum body's 1,472 B):
+# (entry, pattern, k, entries, L, lean).  The human sweep (CCCTAA,
+# --telophrase 4 5 6) runs the first two at every k=5 and k=6 batch.
+BAND = {
+    "greedy-k5-lean": ("greedy_boundary", "CCCTAA", 5, 12, 19968, True),    # 48,768 B
+    "greedy-k6-lean": ("greedy_boundary", "CCCTAA", 6, 12, 19968, True),    # 48,768 B
+    "greedy-K11-dense": ("greedy_boundary", "CCCTAA", 5, 11, 19968, False),  # 48,780 B
+    "sum-lean": ("sum_boundary", "CCCTAAA", 5, 14, 9088, True),             # 48,960 B
+    "sum-dense": ("sum_boundary", "CCCTAAA", 5, 14, 8832, False),           # 48,784 B
+}
+
+
+def _band_plan(case):
+    entry, _, k, K, L, lean = BAND[case]
+    W = ops.num_windows(L, 100, 6)
+    if entry == "greedy_boundary":
+        return geometry.greedy_plan(L, W, K, k, 100 - k, 6, not lean, True)
+    return geometry.sum_plan(L, W, k, 100 - k, 6, not lean, True)
+
+
+def _band_launch(case):
+    """One case of BAND on the card against its plain version; prints
+    "band launch ok".  Run alone in a fresh process by the test below."""
+    entry, pattern, k, K, L, lean = BAND[case]
+    dev = torch.device("cuda", 0)
+    w, slide, B = 100, 6, 128
+    codes, lens = _batch(L + K, B, L, lean, "CCCTAA")
+    table = torch.from_numpy(pack_kmer_table(telophrase_kmers(pattern, k)[:K])).to(dev)
+    a, b = _wire(codes, lens, lean, dev)
+    W = ops.num_windows(L, w, slide)
+    nw = batching.window_counts_for_lengths(lens, w, slide)
+    nw[:3] = (0, 3, W)
+    nw = torch.from_numpy(nw).to(dev)
+    kw = dict(k=k, window_size=w, slide=slide, L=L, lean=lean)
+    n0 = cuda_kernels.LAUNCHES[entry]
+    t, has = getattr(cuda_kernels, entry)(a, b, table, nw, **kw)
+    torch.cuda.synchronize()
+    tp, hp = getattr(cuda_kernels, entry + "_plain")(a, b, table, nw, **kw)
+    assert torch.equal(t, tp) and torch.equal(has, hp) and has.any()
+    assert cuda_kernels.LAUNCHES[entry] == n0 + 1
+    print("band launch ok")
+
+
+@pytest.mark.parametrize("case", list(BAND))
+def test_launch_under_48k_dynamic_over_it_with_static(dev, case):
+    """A fused launch of the band opts in to more shared memory and matches
+    its plain version.  Each case runs in a fresh process: CUDA keeps a
+    kernel's opt-in for the rest of the process, so an earlier launch that
+    opted the same kernel in to as many bytes would hide a missing opt-in
+    (the band fails only where it is a kernel's first large launch)."""
+    import subprocess
+    import sys
+
+    plan = _band_plan(case)
+    assert plan.n_blocks == 1 and 48 * 1024 - 1344 < plan.smem_bytes <= 48 * 1024
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c",
+                        f"from tests.test_torch_cuda import _band_launch; _band_launch({case!r})"],
+                       cwd=root, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0 and "band launch ok" in p.stdout, p.stderr[-3000:]
+
+
 def test_greedy_counts_windows_past_the_read(dev):
     """greedy_counts' general form: windows may reach past L - k, where
     nothing matches, and one window may cover every offset."""

@@ -2,8 +2,9 @@
 `counters:` lines after the closing line, the `stages:` line's three stages,
 phases that are disjoint and lie inside the job, the span tree in a CPU
 torch.profiler trace, no record_function entered without a profiler, the
-reader counters against the input file and the CSV for both readers, and
-the benchmark's readers of the two lines (portbench/metrics/)."""
+reader counters against the input file and the CSV for both readers, a
+sweep's block-cache counters and replay wait, and the benchmark's readers of
+the two lines (portbench/metrics/)."""
 
 import gzip
 import json
@@ -232,6 +233,142 @@ def test_metric_reader_on_a_run_log(cli_runs, tmp_path, name):
     assert read(Ctx) is None
 
 
+def _eligible_bases(path):
+    with gzip.open(path, "rt") as fh:
+        return sum(len(s) for s in (ln.strip() for i, ln in enumerate(fh) if i % 4 == 1)
+                   if len(s) > MIN_LEN)
+
+
+@pytest.fixture(scope="module")
+def sweeps(tmp_path_factory):
+    """The CLI on the CPU on a human-repeat input, one job a phrase list,
+    under a CPU torch.profiler so that each span is recorded with its
+    parent: {phrases: (out dir, the job's recorder)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    base = tmp_path_factory.mktemp("sweeps")
+    data = base / "human.fastq.gz"
+    _write_synthetic_fastq(str(data), random.Random(7), n_reads=160, pattern="CCCTAA")
+    made = []
+
+    class Kept(StageTimers):
+        def __init__(self):
+            super().__init__()
+            made.append(self)
+
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cli.StageTimers = Kept
+    runs = {"input": data}
+    try:
+        for phrases in ((5,), (4, 5), (4, 5, 6)):
+            out = str(base / "-".join(map(str, phrases)))
+            argv = ["--inputDir", str(data), "--outputDir", out, "--pattern", "CCCTAA",
+                    "--slide", "6", "--batchSize", "8", "--device", "cpu",
+                    "--telophrase", *map(str, phrases)]
+            with profile(activities=[ProfilerActivity.CPU]):
+                assert cli.main(argv) == 0
+            runs[phrases] = (out, made[-1])
+    finally:
+        cli.StageTimers = StageTimers
+        torch.set_num_threads(prev)
+    return runs
+
+
+BLOCKCACHE = ("blockcache.write_s", "blockcache.bytes_written", "blockcache.replay_s",
+              "blockcache.bases_replayed", "blockcache.bytes_replayed")
+
+
+@pytest.mark.parametrize("phrases", [(5,), (4, 5), (4, 5, 6)],
+                         ids=["one-phrase", "two-phrases", "three-phrases"])
+def test_block_cache_counters_and_replay_wait(sweeps, phrases):
+    """A sweep's first phrase writes the block cache and every later phrase
+    replays all of it: as many bytes back as went in (two and three phrases
+    write the same first phrase), and the file's eligible bases each time.
+    The main thread's wait on a replaying source is replay_wait, and only
+    there; a one-phrase job has no block-cache counter and no replay_wait."""
+    out, timers = sweeps[phrases]
+    c = timers.counters
+    units = sorted((r for r in timers.records if r.name == "unit"), key=lambda r: r.start)
+    assert len(units) == len(phrases)
+    waits = [{r.name for r in timers.records if r.parent is u and r.name.endswith("_wait")}
+             for u in units]
+    assert waits == [{"reader_wait"}] + [{"replay_wait"}] * (len(phrases) - 1)
+    if len(phrases) == 1:
+        assert not set(BLOCKCACHE) & set(c) and "replay_wait" not in timers.calls
+        return
+    later = len(phrases) - 1
+    written = sweeps[(4, 5)][1].counters["blockcache.bytes_written"]
+    assert c["blockcache.bytes_written"] == written > 0
+    assert c["blockcache.bytes_replayed"] == later * written
+    assert c["blockcache.bases_replayed"] == later * _eligible_bases(sweeps["input"]) > 0
+    assert c["blockcache.write_s"] > 0 and c["blockcache.replay_s"] > 0
+    with open(os.path.join(out, "topsicle_run.log")) as fh:
+        log = fh.read()
+    counters = _named(_line(log, "counters"))
+    assert int(counters["blockcache.bytes_replayed"]) == later * written
+    assert "replay_wait" in _named(_line(log, "spans"))
+    # the engine deletes the cache at the job's end
+    assert not os.path.exists(os.path.join(out, ".blockcache"))
+
+
+@pytest.mark.parametrize("mem_bytes,on_disk", [(None, False), (0, True), (100, True)],
+                         ids=["memory", "disk", "spilled"])
+def test_block_cache_tiers_replay_the_same_blocks(sweeps, tmp_path, monkeypatch, mem_bytes,
+                                                  on_disk):
+    """A three-phrase job's CSV is the same whether its block cache is held
+    in memory, kept on disk, or spills to disk part way through the file
+    (a memory budget of 100 bytes), and the same as parsing every phrase
+    again; only the last two write a disk entry, and every tier hands back
+    what went in."""
+    from topsicle_tpu_torch.io import blockcache
+
+    if mem_bytes is not None:
+        monkeypatch.setattr(blockcache, "MEMORY_BUDGET_BYTES", mem_bytes)
+    opened = []
+    monkeypatch.setattr(blockcache.BlockCacheWriter, "_open",
+                        lambda self, _open=blockcache.BlockCacheWriter._open:
+                        (opened.append(self._input_path), _open(self))[1])
+
+    def csv(name, **env):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        timers = StageTimers()
+        cfg = TopsicleConfig(input_dir=str(sweeps["input"]), output_dir=str(tmp_path / name),
+                             pattern="CCCTAA", slide=6, batch_size=8, telophrase=[4, 5, 6])
+        TorchEngine(cfg, device="cpu", timers=timers).run()
+        assert not os.path.exists(os.path.join(str(tmp_path / name), ".blockcache"))
+        with open(os.path.join(str(tmp_path / name), "telolengths_all.csv"), "rb") as fh:
+            return fh.read(), timers.counters
+
+    got, c = csv("tier")
+    assert opened == ([str(sweeps["input"])] if on_disk else [])
+    assert c["blockcache.bytes_replayed"] == 2 * c["blockcache.bytes_written"] > 0
+    assert c["blockcache.bases_replayed"] == 2 * _eligible_bases(sweeps["input"])
+    want, c = csv("parsed", TOPSICLE_BLOCK_CACHE_MB="0")
+    assert got == want and not any(k.startswith("blockcache.") for k in c)
+
+
+@pytest.mark.parametrize("name", ["span_share.replay_wait", "blockcache.write_share",
+                                  "blockcache.mbp_per_busy_s"])
+def test_block_cache_readers(sweeps, name):
+    """The sweep's readers give a number on a three-phrase job's run log
+    and nothing on a one-phrase job's.  The replays' wait may round to
+    0.000 s in the spans line: the main thread rarely waits on them."""
+    read = portbench_run.load_reader(name)
+
+    def ctx(phrases):
+        out, timers = sweeps[phrases]
+
+        class Ctx:
+            jobs = [{"out": out, "wall_s": timers.seconds["job"] or 1.0}]
+        return Ctx
+    v = read(ctx((4, 5, 6)))
+    assert isinstance(v, float) and math.isfinite(v)
+    assert v >= 0 if name == "span_share.replay_wait" else v > 0
+    assert read(ctx((5,))) is None
+
+
 def test_recorder_totals_lines_and_counts():
     t = StageTimers()
     for _ in range(2):
@@ -246,7 +383,7 @@ def test_recorder_totals_lines_and_counts():
     assert t.summary().startswith("stages: step1=0.00s/2x; wall ")
     assert "3 reads, 2.0 Mbp" in t.summary()
     assert t.spans_line().startswith("spans: step1=0.000s/2x, unit=0.000s/2x")
-    assert t.counters_line() == ("counters: bases.in=2000000, reader.busy_s=0.250, "
+    assert t.counters_line() == ("counters: bases.in=2000000, reader.busy_s=0.250000, "
                                  "reads.in=3, reads.short=1")
     assert t.records == [] and profiling.STAGES == ("step1", "step2", "subset")
 

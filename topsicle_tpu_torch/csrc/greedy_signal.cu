@@ -97,7 +97,7 @@ constexpr int kThreads = 1024;
 constexpr int kCpThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;                      // ballots in flight in step A
-constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
+constexpr int kSmemLimit = topsicle::kSmemOptin - 2048;   // less the static part
 
 enum Mode { kSignal, kCounts, kBoundary };
 
@@ -301,14 +301,8 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
   const bool dense = invalid != nullptr;
   Plan p;
   if (!plan(L, W, K, k, J, slide, dense, kMode == kBoundary, block_windows, &p)) return -2;
-  if (p.smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        greedy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return static_cast<int>(e);
-    }
-  }
+  const cudaError_t opt = topsicle::allow_smem<greedy_kernel<kMode>>(p.smem_bytes);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   using topsicle::aligned16;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -384,11 +378,8 @@ extern "C" int topsicle_greedy_max_clusters(int L, int W, int K, int k, int J, i
                                             int dense, int block_windows, int* out) {
   Plan p;
   if (!plan(L, W, K, k, J, slide, dense != 0, true, block_windows, &p)) return -2;
-  if (p.smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        greedy_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t opt = topsicle::allow_smem<greedy_kernel<kBoundary>>(p.smem_bytes);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       topsicle::launch_config(1, p.n_blocks, kThreads, p.smem_bytes, true, nullptr, &attr);

@@ -49,7 +49,7 @@ namespace {
 constexpr int kWarps = 8;                       // warps that share a row's words
 constexpr int kThreads = kWarps * 32;
 constexpr int kUnroll = 8;                      // ballots in flight
-constexpr int kSmemLimit = 232448 - 1024;       // per-block maximum
+constexpr int kSmemLimit = topsicle::kSmemOptin - 1024;   // no static part
 
 // Dynamic shared memory, in bytes: wire | invalid plane | 32 match planes of
 // `pw` words.  One function for the launcher and the kernel.
@@ -146,14 +146,8 @@ extern "C" int topsicle_step1_counts(const void* packed, int packed_stride,
   const long long pw = ((static_cast<long long>(L) - k + 1 + 31) >> 5) | 1;
   const long long smem_bytes = planes_offset(L, dense) + 32 * 4 * pw;
   if (smem_bytes > kSmemLimit) return -2;
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        step1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return static_cast<int>(e);
-    }
-  }
+  const cudaError_t opt = topsicle::allow_smem<step1_kernel>(static_cast<int>(smem_bytes));
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   using topsicle::aligned16;
   step1_kernel<<<R, kThreads, static_cast<size_t>(smem_bytes),
                  static_cast<cudaStream_t>(stream)>>>(

@@ -103,7 +103,7 @@ constexpr int kThreads = 512;
 constexpr int kCpThreads = 256;
 constexpr int kMaxEntries = 31;
 constexpr int kLutMaxK = 7;                     // 4^7 words = 64 KB
-constexpr int kSmemLimit = 232448 - 2048;       // per-block maximum, less the static part
+constexpr int kSmemLimit = topsicle::kSmemOptin - 2048;   // less the static part
 
 using topsicle::round16;
 
@@ -360,14 +360,8 @@ int launch(const void* packed, int packed_stride, const void* lengths, const voi
   const bool dense = invalid != nullptr;
   Plan p;
   if (!plan(L, W, k, J, slide, dense, kBoundary, block_windows, &p)) return -2;
-  if (p.smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sum_kernel<kBoundary>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch must not report it
-      return static_cast<int>(e);
-    }
-  }
+  const cudaError_t opt = topsicle::allow_smem<sum_kernel<kBoundary>>(p.smem_bytes);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   using topsicle::aligned16;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
@@ -430,11 +424,8 @@ extern "C" int topsicle_sum_max_clusters(int L, int W, int k, int J, int slide, 
                                          int block_windows, int* out) {
   Plan p;
   if (!plan(L, W, k, J, slide, dense != 0, true, block_windows, &p)) return -2;
-  if (p.smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sum_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t opt = topsicle::allow_smem<sum_kernel<true>>(p.smem_bytes);
+  if (opt != cudaSuccess) return static_cast<int>(opt);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       topsicle::launch_config(1, p.n_blocks, kThreads, p.smem_bytes, true, nullptr, &attr);

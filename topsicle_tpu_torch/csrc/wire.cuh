@@ -11,12 +11,49 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace topsicle {
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+// ---- shared memory past 48 KB ------------------------------------------------
+//
+// A block gets 48 KB of shared memory, static and dynamic together, unless
+// its kernel opts in to more (cudaFuncAttributeMaxDynamicSharedMemorySize),
+// up to kSmemOptin less the kernel's static part.  A launch past 48 KB in all
+// without the opt-in fails with an invalid argument, even where its dynamic
+// bytes alone stay under 48 KB.
+
+constexpr int kSmemDefault = 48 * 1024;   // a block's shared memory without the opt-in
+constexpr int kSmemOptin = 232448;        // an H100 block's most with it (227 KB)
+
+// Lets `kKernel` launch with `dynamic` bytes of dynamic shared memory: opts it
+// in where those and its static shared memory pass kSmemDefault.  The static
+// bytes are read once (cudaFuncGetAttributes).  Returns the CUDA error, with
+// CUDA's last error cleared, or cudaSuccess.
+template <auto kKernel>
+inline cudaError_t allow_smem(int dynamic) {
+  static std::atomic<int> static_bytes{-1};
+  int s = static_bytes.load(std::memory_order_relaxed);
+  if (s < 0) {
+    cudaFuncAttributes attr;
+    const cudaError_t e = cudaFuncGetAttributes(&attr, kKernel);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+    s = static_cast<int>(attr.sharedSizeBytes);
+    static_bytes.store(s, std::memory_order_relaxed);
+  }
+  if (dynamic + s <= kSmemDefault) return cudaSuccess;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
+  if (e != cudaSuccess) cudaGetLastError();  // the next launch must not report it
+  return e;
+}
 
 // True iff a row pointer and its stride allow 16-byte loads of every row.
 inline bool aligned16(const void* p, int stride) {

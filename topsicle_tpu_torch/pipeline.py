@@ -161,6 +161,9 @@ class TorchEngine:
         self._bc_enabled = (len(cfg.telophrases()) > 1
                             and blockcache.cache_budget_bytes() > 0)
         self._bc_left = blockcache.cache_budget_bytes() if self._bc_enabled else 0
+        # the cache's first entries stay in memory, within their own budget
+        self._bc_mem = blockcache.MemoryCache(blockcache.MEMORY_BUDGET_BYTES) \
+            if self._bc_enabled else None
         self._bc_write = self._bc_enabled   # run() clears this for the
                                             # final phrase (nothing would
                                             # ever read those entries)
@@ -193,6 +196,11 @@ class TorchEngine:
     def _bc_refund(self, n: int) -> None:
         with self._bc_lock:
             self._bc_left += n
+
+    def _bc_clear(self) -> None:
+        """Drops the block cache: its disk entries and its held ones."""
+        blockcache.clear(self.cfg.output_dir)
+        self._bc_mem.clear()
 
     # -- models ------------------------------------------------------------
     def _model(self, phrase: int, kmers: Sequence[str]):
@@ -285,34 +293,32 @@ class TorchEngine:
             raise RuntimeError("native_io requested but the C++ IO library is unavailable")
         return ok
 
-    def _iter_blocks(self, path: str, subset: Optional[_KeptSubset] = None):
+    def _iter_blocks(self, path: str, subset: Optional[_KeptSubset] = None, cached=None):
         """Blocks of up to batch_size eligible reads, with the
         encoded-block cache wrapped around the raw parse: a
         multi-phrase run's later phrases replay the first parse's
-        blocks from disk (~10x faster than re-inflating), and the
-        cache entry only becomes visible after a COMPLETE successful
-        parse (a failed file caches nothing).  A parse for `subset`
-        keeps each block's Records (the cache stores none)."""
+        blocks from memory or disk (`cached`, the open entry; ~10x faster
+        than re-inflating), and the cache entry only becomes visible after a
+        COMPLETE successful parse (a failed file caches nothing).  A
+        parse for `subset` keeps each block's Records (the cache stores
+        none).  Both count their records (io/blockcache.py)."""
         from topsicle_tpu_torch.io import blockcache
         from topsicle_tpu_torch.native.loader import Block
 
         cfg = self.cfg
-        if self._bc_enabled:
-            cached = blockcache.open_cached_blocks(
-                cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size)
-            if cached is not None:
-                try:
-                    for ids, codes, offs in cached:
-                        yield Block(ids, codes, offs)
-                    return
-                except Exception as e:
-                    # an entry corrupted/truncated after commit must not
-                    # kill the run NOR poison the retry: drop it (and
-                    # refund its kept budget reservation), fail the unit
-                    # like any unreadable input (resume re-parses fresh)
-                    self._bc_refund(
-                        blockcache.drop_entry(cfg.output_dir, path))
-                    raise reader.InputFileError(path, e) from e
+        if cached is not None:
+            try:
+                for ids, codes, offs in cached:
+                    yield Block(ids, codes, offs)
+                return
+            except Exception as e:
+                # an entry corrupted/truncated after commit must not
+                # kill the run NOR poison the retry: drop it (and
+                # refund its kept budget reservation), fail the unit
+                # like any unreadable input (resume re-parses fresh)
+                self._bc_refund(
+                    blockcache.drop_entry(cfg.output_dir, path))
+                raise reader.InputFileError(path, e) from e
         bc = None
         # the _bc_left read is an unlocked fast-path gate (exactness is
         # enforced by the per-record reservation): once the budget is
@@ -322,7 +328,7 @@ class TorchEngine:
                 and self._bc_left > 0):
             bc = blockcache.BlockCacheWriter(
                 cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size,
-                self._bc_reserve, self._bc_refund)
+                self._bc_reserve, self._bc_refund, timers=self.timers, memory=self._bc_mem)
         try:
             for blk in self._parse_blocks(path, subset):
                 if bc is not None and bc.active:
@@ -425,10 +431,18 @@ class TorchEngine:
         blocks (= ~2 device batches) of reads (utils.prefetch.Prefetcher
         starts immediately, so sources created ahead overlap the current
         file's device work — the reference's --threads fan-out, as a
-        reader pool)."""
+        reader pool).  The source's `replays` says whether it replays
+        the block cache, whose entry is opened here."""
+        from topsicle_tpu_torch.io import blockcache
         from topsicle_tpu_torch.utils.prefetch import Prefetcher
 
-        return Prefetcher(self._iter_blocks(path, subset), depth=2)
+        cfg = self.cfg
+        cached = blockcache.open_cached_blocks(
+            cfg.output_dir, path, cfg.min_seq_length, cfg.batch_size,
+            timers=self.timers, memory=self._bc_mem) if self._bc_enabled else None
+        source = Prefetcher(self._iter_blocks(path, subset, cached), depth=2)
+        source.replays = cached is not None
+        return source
 
     def _unit_source(self, path: str):
         """A files-mode unit's source and the subset file it writes from
@@ -457,7 +471,8 @@ class TorchEngine:
         tail slice (~20 kB each) before the first boundary runs.  With
         `subset`, each block's passing records go to the subset file
         after its selection, in a subset span of their own.  Spans
-        (`timers`): reader_wait, step1 with step1.launch, step1.wait and
+        (`timers`): reader_wait (replay_wait where the source replays
+        the block cache), step1 with step1.launch, step1.wait and
         step1.select, and subset; none is open across a yield."""
         cfg = self.cfg
         cutoff = cfg.min_cutoff()
@@ -506,10 +521,11 @@ class TorchEngine:
         # parse/encode ahead on a reader thread (bounded by ~2 blocks)
         if source is None:
             source = self._read_source(path)
+        wait = "replay_wait" if getattr(source, "replays", False) else "reader_wait"
         order = 0
         blocks = iter(source)
         while True:
-            with span("reader_wait"):
+            with span(wait):
                 blk = next(blocks, None)
             if blk is None:
                 break
@@ -1119,7 +1135,7 @@ class TorchEngine:
     def run(self) -> List[ReadResult]:
         """The whole run.  Spans (the job's recorder, or this run's own):
         setup (this preamble), model, unit a (file, phrase) holding its
-        reader_wait, step1, step2, rows and subset spans, emit, and
+        reader_wait (or replay_wait), step1, step2, rows and subset spans, emit, and
         aggregate with aggregate.plot; the `stages:` line names step1,
         step2 and subset.  --shardMode global times its three stages
         alone."""
@@ -1182,7 +1198,9 @@ class TorchEngine:
                 self._bc_left = blockcache.cache_budget_bytes()
                 self._bc_skip.clear()
                 if not cfg.resume and not dist:
-                    blockcache.clear(cfg.output_dir)
+                    self._bc_clear()
+                else:
+                    self._bc_mem.clear()
 
         def emit(path, file_idx, phrase, unit: List[ReadResult]):
             """A computed unit: its CSV rows (a part file when distributed),
@@ -1265,8 +1283,11 @@ class TorchEngine:
                 for s, _ in sources.values():
                     s.close()
             self.log("finished processing all reads")
-        if self._bc_enabled and not dist:
-            blockcache.clear(cfg.output_dir)
+        if self._bc_enabled:
+            if dist:    # process 0 drops the disk entries after the merge
+                self._bc_mem.clear()
+            else:
+                self._bc_clear()
         self.log(timers.summary())
 
         if dist:
@@ -1279,7 +1300,7 @@ class TorchEngine:
                                                               run_parts)
             distributed.cleanup_parts(cfg.output_dir)
             if self._bc_enabled:
-                blockcache.clear(cfg.output_dir)
+                self._bc_clear()
         with timers.span("aggregate"):
             aggregate.summarize_all(phrase_to_trc, phrase_to_telo, cfg.input_trc(),
                                     log=self.log, plot_fn_for_phrase=self._quadfit_plot)
