@@ -107,15 +107,28 @@ def test_kernel_build_lands_in_the_cache(tmp_path):
 
 
 def test_reader_library_is_named_by_its_source():
-    """The reader's library is named by a hash of tsio.cc and the flags: a
-    changed source (a new ABI) gets a new name, so a cache never hands it
-    a library built from another source."""
-    src = Path(t_loader._SRC).read_bytes()
-    assert READER == t_loader.library_name(src)
+    """The reader's library is named by a hash of tsio.cc, the inflate.h it
+    includes and the flags: a changed source (a new ABI) gets a new name,
+    so a cache never hands it a library built from another source."""
+    src, header = Path(t_loader._SRC).read_bytes(), Path(t_loader._HEADER).read_bytes()
+    assert b'#include "inflate.h"' in src
+    assert READER == t_loader.library_name(src, header)
     assert READER.startswith("_tsio-") and READER.endswith(".so")
     changed = src.replace(b"void tsio_close(", b"void tsio_close (")
-    assert changed != src and t_loader.library_name(changed) != READER
-    assert t_loader.library_name(src + b"\n") != READER
+    assert changed != src and t_loader.library_name(changed, header) != READER
+    assert t_loader.library_name(src + b"\n", header) != READER
+
+
+def test_reader_library_is_named_by_its_inflate_header():
+    """A change to inflate.h alone renames the library, so a cache that
+    holds a library built from an older decoder never loads it."""
+    src, header = Path(t_loader._SRC).read_bytes(), Path(t_loader._HEADER).read_bytes()
+    changed = header.replace(b"constexpr size_t kFastOut = 320;", b"constexpr size_t kFastOut = 384;")
+    assert changed != header
+    assert t_loader.library_name(src, changed) != READER
+    assert t_loader.library_name(src, header + b"\n") != READER
+    # the two sources are hashed apart: moving bytes from one to the other renames it too
+    assert t_loader.library_name(src + header[:1], header[1:]) != READER
 
 
 def test_precompile_builds_the_reader_in_the_cache(tmp_path):

@@ -324,18 +324,32 @@ def test_native_source_is_a_copy():
     """The port's C++ reader is the original with counters added, which
     the run log's reader and subset counters need (the input's records,
     bases and short records; the subset writer's seconds re-reading the
-    input), and with what a subset file needs kept from the first parse
-    (keep_records: qualities written beside the codes, headers, plain
-    flags, raw bases and first-token hashes; tsio_kept, tsio_take,
-    tsio_repeated, tsio_token_hash and tsio_emit): every line of the
-    original is there, in order, but the three the counters replace, and
-    the lines it adds hold no control flow but those two additions' own.
-    test_native_reader_block_for_block holds its blocks to the
-    original's."""
+    input; the inflate's seconds and bytes), with what a subset file needs
+    kept from the first parse (keep_records: qualities written beside the
+    codes, headers, plain flags, raw bases and first-token hashes;
+    tsio_kept, tsio_take, tsio_repeated, tsio_token_hash and tsio_emit),
+    and with its own gzip inflate (inflate.h's gunzip::Stream) in place of
+    zlib's gzFile: every line of the original is there, in order, but the
+    three the counters replace and the seven of LineReader that name the
+    gzFile (its declaration, and each line that calls gzopen, gzbuffer,
+    gzread, gzerror, gzeof or gzclose), each of which now names the Stream;
+    and the lines it adds hold no control flow but those additions' own.
+    test_native_reader_block_for_block and tests/test_torch_inflate.py hold
+    its blocks to the original's."""
     replaced = {"    if (static_cast<int64_t>(rec.seq.size()) <= r->min_len) continue;",
                 "                    const char* ids_joined, int fastq_out) {",
-                "  while (rr.next(rec)) {"}
-    flow = [  # fnv1a, token_hash, keep_record
+                "  while (rr.next(rec)) {",
+                # LineReader's gzFile
+                '  explicit LineReader(const char* path) : gz_(gzopen(path, "rb")) {',
+                "    if (gz_) gzbuffer(gz_, kBufSize);",
+                "    if (gz_) gzclose(gz_);",
+                "        len_ = gzread(gz_, buf_, kBufSize);",
+                "          gzerror(gz_, &errnum);",
+                "          if (len_ < 0 || errnum != Z_OK || (len_ == 0 && !gzeof(gz_)))",
+                "  gzFile gz_ = nullptr;"}
+    flow = [  # LineReader: its end read as gzread's
+            "          if (len_ < 0 || errnum != Z_OK || (len_ == 0 && !gz_->eof()))",
+            # fnv1a, token_hash, keep_record
             "  for (size_t i = 0; i < n; ++i) h = (h ^ static_cast<unsigned char>(s[i])) "
             "* 1099511628211ull;",
             "  return h;",
@@ -388,7 +402,7 @@ def test_native_source_is_a_copy():
     ops = difflib.SequenceMatcher(None, original, port, autojunk=False).get_opcodes()
     removed = [ln for op, i1, i2, _, _ in ops if op != "equal" for ln in original[i1:i2]]
     added = [ln for op, _, _, j1, j2 in ops if op != "equal" for ln in port[j1:j2]]
-    assert set(removed) == replaced and len(removed) == 3
+    assert set(removed) == replaced and len(removed) == 10
     keyword = re.compile(r"\b(if|else|for|while|do|switch|case|continue|break|return|goto)\b")
     assert [ln for ln in added
             if not ln.lstrip().startswith("//") and keyword.search(ln)] == flow

@@ -11,6 +11,7 @@ import json
 import math
 import os
 import random
+import struct
 
 import pytest
 import torch
@@ -34,7 +35,8 @@ PARENT = {"job": None, "setup": "job", "model": "job", "unit": "job", "emit": "j
           "step2.pack": "step2", "step2.launch": "step2", "step2.wait": "step2"}
 READERS = ["span_share.reader_wait", "span_share.setup", "span_share.output",
            "span_share.unspanned", "span_share.device_wait", "reader.mbp_per_busy_s",
-           "step2.useful_share", "subset.reread_share", "subset.kept_share"]
+           "step2.useful_share", "subset.reread_share", "subset.kept_share",
+           "reader.inflate_mb_per_s", "reader.inflate_share"]
 MIN_LEN = 9000
 
 
@@ -49,7 +51,7 @@ def synthetic(tmp_path_factory):
 
 def _file_counts(path):
     """(records, bases, records at or under MIN_LEN) of a 4-line FASTQ."""
-    with gzip.open(path, "rt") as fh:
+    with (gzip.open if str(path).endswith(".gz") else open)(path, "rt") as fh:
         seqs = [ln.strip() for i, ln in enumerate(fh) if i % 4 == 1]
     return len(seqs), sum(map(len, seqs)), sum(len(s) <= MIN_LEN for s in seqs)
 
@@ -166,25 +168,32 @@ def test_spans_nest_in_the_trace(cli_runs):
     assert job.start <= phases[0][0] and phases[-1][1] <= job.end
 
 
-@pytest.mark.parametrize("phrases,cache_mb,repeated",
-                         [([5], None, False), ([4, 5], None, False), ([4, 5], "0", False),
-                          ([5], None, True)],
-                         ids=["k5", "k4-5-cached", "k4-5-parsed-again", "k5-repeated-id"])
+@pytest.mark.parametrize("phrases,cache_mb,repeated,plain",
+                         [([5], None, False, False), ([4, 5], None, False, False),
+                          ([4, 5], "0", False, False), ([5], None, True, False),
+                          ([5], None, False, True)],
+                         ids=["k5", "k4-5-cached", "k4-5-parsed-again", "k5-repeated-id",
+                              "k5-plain"])
 @pytest.mark.parametrize("native_io", [False, True], ids=["python", "native"])
 def test_reader_counters_match_input_and_csv(synthetic, tmp_path, monkeypatch, native_io,
-                                             phrases, cache_mb, repeated):
+                                             phrases, cache_mb, repeated, plain):
     """The input is counted once a run, whether a later phrase replays it
     from the block cache or, with the cache off, parses it again.  The
     C++ reader's subset comes from the first parse; a short record that
     repeats a passing read's id (`repeated`) makes the writer read the
-    input again."""
+    input again.  The C++ reader's inflate makes every byte of the text
+    (the input's ISIZE) inside the reader's busy time, and nothing from
+    plain input; the Python reader counts no inflate."""
     if cache_mb is not None:
         monkeypatch.setenv("TOPSICLE_BLOCK_CACHE_MB", cache_mb)
-    if repeated:
-        data = tmp_path / "in" / "synthetic.fastq.gz"
+    if repeated or plain:
+        data = tmp_path / "in" / ("synthetic.fastq" if plain else "synthetic.fastq.gz")
         data.parent.mkdir()
-        with gzip.open(synthetic, "rb") as src, gzip.open(data, "wb") as dst:
-            dst.write(src.read() + b"@read0 short, same id\nACGT\n+\nIIII\n")
+        with gzip.open(synthetic, "rb") as src:
+            text = src.read()
+        if repeated:
+            text += b"@read0 short, same id\nACGT\n+\nIIII\n"
+        data.write_bytes(text if plain else gzip.compress(text))
         synthetic = data
     timers = StageTimers()
     cfg = TopsicleConfig(input_dir=str(synthetic), output_dir=str(tmp_path / "out"),
@@ -196,6 +205,15 @@ def test_reader_counters_match_input_and_csv(synthetic, tmp_path, monkeypatch, n
     engine.run()
     records, bases, short = _file_counts(synthetic)
     c = timers.counters
+    if not native_io:
+        assert "reader.inflate_s" not in c and "reader.inflated_bytes" not in c
+    elif plain:
+        assert c["reader.inflated_bytes"] == 0
+    else:
+        with open(synthetic, "rb") as fh:
+            isize = struct.unpack("<I", fh.read()[-4:])[0]
+        assert c["reader.inflated_bytes"] == isize
+        assert 0 < c["reader.inflate_s"] <= c["reader.busy_s"]
     assert timers.calls["unit"] == len(phrases)
     assert (c["reads.in"], c["bases.in"], c["reads.short"]) == (records, bases, short)
     assert c["reads.passed"] == _csv_rows(str(tmp_path / "out")) > 0

@@ -3,9 +3,10 @@
 The library is built into the compile cache (utils/compile_cache.py:
 TOPSICLE_COMPILE_CACHE, else topsicle_tpu_torch/_build/), never beside
 the source, so an installed package is whole and a checkout stays clean.
-Its name carries a hash of the source and the compiler flags
-(`library_name`), so a cache shared by installs of other versions never
-hands one a library built from another source, whatever the files' times.
+Its name carries a hash of the sources (tsio.cc and the inflate.h it
+includes) and the compiler flags (`library_name`), so a cache shared by
+installs of other versions never hands one a library built from another
+source, whatever the files' times.
 When it cannot be built (no g++ or zlib, a cache that cannot be
 written), callers fall back to the Python reader and `status()` says
 why."""
@@ -31,25 +32,29 @@ _STATUS = ""        # "built <path>", "loaded <path>" or "not built: <why>"
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "native", "tsio.cc")
+_HEADER = os.path.join(_PKG_DIR, "native", "inflate.h")    # included by tsio.cc
 _BUILD_DIR = str(compile_cache.default_cache_dir())
 _FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 
-def library_name(source: bytes) -> str:
-    """The file name of the library built from `source` with _FLAGS."""
-    h = hashlib.sha256(source + b"\0" + " ".join(_FLAGS).encode())
+def library_name(source: bytes, header: bytes) -> str:
+    """The file name of the library built from tsio.cc's `source`, which
+    includes inflate.h's `header`, with _FLAGS."""
+    h = hashlib.sha256()
+    for part in (source, header, " ".join(_FLAGS).encode()):
+        h.update(hashlib.sha256(part).digest())
     return f"_tsio-{h.hexdigest()[:16]}.so"
 
 
-def _source() -> bytes:
+def _read(path: str) -> bytes:
     try:
-        with open(_SRC, "rb") as fh:
+        with open(path, "rb") as fh:
             return fh.read()
     except OSError:
-        return b""          # _lib() reports the missing source
+        return b""          # _lib() reports a missing source; g++, a missing header
 
 
-_SO = os.path.join(_BUILD_DIR, library_name(_source()))
+_SO = os.path.join(_BUILD_DIR, library_name(_read(_SRC), _read(_HEADER)))
 
 
 def _build() -> Optional[str]:
@@ -283,13 +288,24 @@ class NativeReader:
             for i, rid in enumerate(blk.ids):
                 yield rid, blk.codes[blk.offs[i]:blk.offs[i + 1]].copy()
 
+    def _stats(self) -> List[int]:
+        out = (ctypes.c_int64 * 5)()
+        if self._h is not None:
+            self._lib.tsio_stats(self._h, out)
+        return list(out)
+
     def stats(self) -> Tuple[int, int, int]:
         """(records, bases, short records) parsed so far: every record of
         the input, the short ones (len <= min_len, skipped) too."""
-        out = (ctypes.c_int64 * 3)()
-        if self._h is not None:
-            self._lib.tsio_stats(self._h, out)
-        return out[0], out[1], out[2]
+        records, bases, short, _, _ = self._stats()
+        return records, bases, short
+
+    def inflate_stats(self) -> Tuple[float, int]:
+        """(seconds, bytes) of the gzip inflate so far: the time spent in
+        it, on the steady clock, and the bytes of text it made; (0.0, 0)
+        for input that is not gzip, which passes through."""
+        _, _, _, ns, inflated = self._stats()
+        return ns * 1e-9, inflated
 
     def close(self) -> None:
         if self._h is not None:

@@ -27,6 +27,8 @@
 #include <unordered_set>
 #include <vector>
 
+#include "inflate.h"
+
 namespace {
 
 constexpr size_t kBufSize = 1 << 20;
@@ -45,13 +47,13 @@ const EncodeLut kLut;
 
 // Buffered line reader over plain or gzip files (gzFile handles both:
 // zlib passes non-gzip data through transparently).
+// gunzip::Stream reads a file as gzread reads a gzFile, in its place.
 class LineReader {
  public:
-  explicit LineReader(const char* path) : gz_(gzopen(path, "rb")) {
-    if (gz_) gzbuffer(gz_, kBufSize);
+  explicit LineReader(const char* path) : gz_(gunzip::Stream::open(path)) {
   }
   ~LineReader() {
-    if (gz_) gzclose(gz_);
+    delete gz_;
   }
   bool ok() const { return gz_ != nullptr; }
 
@@ -59,17 +61,20 @@ class LineReader {
   // distinguishes real EOF from a stream that died mid-way.
   bool error() const { return err_; }
 
+  // out[0]: nanoseconds spent inflating; out[1]: the bytes inflated.
+  void stats(int64_t* out) const { gz_->stats(out); }
+
   // Reads one line (without trailing \n / \r\n) into out; false on EOF.
   bool getline(std::string& out) {
     out.clear();
     while (true) {
       if (pos_ >= len_) {
-        len_ = gzread(gz_, buf_, kBufSize);
+        len_ = gz_->read(buf_, kBufSize);
         pos_ = 0;
         if (len_ <= 0) {
           int errnum = Z_OK;
-          gzerror(gz_, &errnum);
-          if (len_ < 0 || errnum != Z_OK || (len_ == 0 && !gzeof(gz_)))
+          gz_->error(&errnum);
+          if (len_ < 0 || errnum != Z_OK || (len_ == 0 && !gz_->eof()))
             err_ = true;
           return !out.empty();
         }
@@ -87,7 +92,7 @@ class LineReader {
   }
 
  private:
-  gzFile gz_ = nullptr;
+  gunzip::Stream* gz_ = nullptr;
   char buf_[kBufSize];
   int pos_ = 0, len_ = 0;
   bool err_ = false;
@@ -109,6 +114,7 @@ class RecordReader {
     else if (!line_.empty() && line_[0] == '>') fmt_ = 1;
   }
   int format() const { return fmt_; }
+  void inflate_stats(int64_t* out) const { lr_.stats(out); }
 
   bool next(Record& rec) {
     if (fmt_ == 2) return next_fastq(rec);
@@ -313,12 +319,15 @@ int64_t tsio_next(void* handle, uint8_t* codes, int64_t codes_cap,
 }
 
 // The handle's records so far: out[0] every record parsed, out[1] their
-// bases, out[2] the records at or under min_len (skipped).
+// bases, out[2] the records at or under min_len (skipped); and its inflate:
+// out[3] the nanoseconds spent in it, out[4] the bytes of text it made (0
+// for input that is not gzip).
 void tsio_stats(void* handle, int64_t* out) {
   const Reader* r = static_cast<const Reader*>(handle);
   out[0] = r->records;
   out[1] = r->bases;
   out[2] = r->short_records;
+  r->rr.inflate_stats(out + 3);
 }
 
 // With keep_records: the reads kept since the last tsio_take.  out[0]

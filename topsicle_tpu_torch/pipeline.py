@@ -357,17 +357,21 @@ class TorchEngine:
         A run's first parse of a file counts the input: its records, their
         bases and the short ones (`reads.in`, `bases.in`, `reads.short`),
         and the seconds spent producing its blocks (`reader.busy_s`: from
-        resuming to yielding, so no wait to hand a block on).  A later
+        resuming to yielding, so no wait to hand a block on); with the C++
+        reader, the seconds of those in its gzip inflate and the bytes of
+        text it made (`reader.inflate_s`, `reader.inflated_bytes`: 0 for
+        input that is not gzip).  A later
         phrase's replay from the block cache or parse again is in
         neither.  With `subset`, the C++ reader keeps each block's Records
         and, at the end of the input, sets subset.repeated."""
         first = path not in self._parsed
         self._parsed.add(path)
         counts = [0, 0, 0]     # records, bases, records at or under minSeqLength
+        inflate: Dict[str, float] = {}
         busy = 0.0
         t = time.perf_counter()
         try:
-            for blk in self._parse_input(path, counts, subset):
+            for blk in self._parse_input(path, counts, subset, inflate):
                 busy += time.perf_counter() - t
                 t = None
                 yield blk
@@ -379,11 +383,14 @@ class TorchEngine:
                 for name, v in zip(("reads.in", "bases.in", "reads.short", "reader.busy_s"),
                                    (*counts, busy)):
                     self.timers.add(name, v)
+                for name, v in inflate.items():
+                    self.timers.add(name, v)
 
-    def _parse_input(self, path: str, counts: List[int],
-                     subset: Optional[_KeptSubset] = None):
+    def _parse_input(self, path: str, counts: List[int], subset: Optional[_KeptSubset],
+                     inflate: Dict[str, float]):
         """_parse_blocks' parse, with the input's [records, bases, short
-        records] added to `counts`."""
+        records] added to `counts` and, where the C++ reader parses,
+        `reader.inflate_s` and `reader.inflated_bytes` set in `inflate`."""
         from topsicle_tpu_torch.native.loader import Block
 
         cfg = self.cfg
@@ -400,6 +407,8 @@ class TorchEngine:
                         subset.repeated = rd.repeated()
                 finally:
                     counts[:] = rd.stats()
+                    inflate["reader.inflate_s"], inflate["reader.inflated_bytes"] = \
+                        rd.inflate_stats()
                     rd.close()
                 return
             ids: List[str] = []
